@@ -1,0 +1,254 @@
+"""The port's estimator slice against the JAX estimator, on the world and
+config of tests/test_estimator_e2e.run_sequence (26 frames, B=10, Vo=4,
+F=256, N=2048, ground-truth init, noiseless):
+(a) teacher-forced: the JAX estimator's steady-state snapshot
+    (utils/checkpoint.save_estimator) loaded into the port, one more frame
+    stepped by both, with the steady solve in f32 and in f64;
+(b) free-running: both packages run the whole sequence;
+(c) the f64 and the on-device DLT triangulations against the JAX one;
+(d) no jax: every isvins_tpu_torch module imports without jax.
+The JAX estimator runs once per file (module fixture); the snapshot is taken
+during that same run."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import isvins_tpu  # noqa: F401
+from isvins_tpu.estimator.estimator import Estimator as JEstimator
+from isvins_tpu.geom import mat_to_quat
+from isvins_tpu.solver import WindowDims as JDims
+from isvins_tpu.utils.checkpoint import load_estimator as jax_load_estimator
+from isvins_tpu.utils.checkpoint import save_estimator
+from isvins_tpu_torch.estimator.estimator import Estimator as TEstimator
+from isvins_tpu_torch.solver import WindowDims as TDims
+from isvins_tpu_torch.utils.checkpoint import load_estimator
+
+from test_estimator_e2e import ate, run_sequence  # noqa: F401  (config/world source)
+
+N_FRAMES = 26
+SNAP_FRAME = 18  # steady state: init at frame 9, then 9 solved frames
+
+
+def _config():
+    from isvins_tpu.config import WindowConfig, euroc_config
+
+    return euroc_config().replace(
+        window=WindowConfig(vo_size=4, all_size=10, max_features=256, max_imu_per_frame=64),
+        tic=(0.02, -0.01, 0.01),
+        ric=((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0)),
+    )
+
+
+def _world():
+    from isvins_tpu.utils.synthetic import make_world
+
+    return make_world(n_frames=N_FRAMES, n_landmarks=240, seed=0)
+
+
+def _feed(est, world, k, tic, qic):
+    from isvins_tpu.utils.synthetic import project
+
+    if k > 0:
+        for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+            est.process_imu(world.imu_dts[k - 1][s], world.imu_accs[k - 1][s],
+                            world.imu_gyrs[k - 1][s])
+    pts, _, vis = project(world, k, tic, qic)
+    return est.process_image(np.where(vis)[0], pts[vis], world.frame_times[k])
+
+
+def _gt_hook(world):
+    def hook(e):
+        e.set_ground_truth_init(world.P, world.Q, world.V)
+        e.f_manager.depth[:] = -1.0
+
+    return hook
+
+
+def _snapshot_state(est):
+    return {"P": est.Ps.copy(), "Q": est.Qs.copy(), "V": est.Vs.copy(),
+            "Ba": est.Bas.copy(), "Bg": est.Bgs.copy(),
+            "priors": [np.array(a) for a in _prior_leaves(est.priors)]}
+
+
+def _prior_leaves(pr):
+    out = []
+    for a in pr:
+        out.extend(_prior_leaves(a) if isinstance(a, tuple) else [np.asarray(a)])
+    return out
+
+
+def _run(est, world, tic, qic, on_frame=None):
+    flags, traj = [], []
+    for k in range(N_FRAMES):
+        info = _feed(est, world, k, tic, qic)
+        flags.append(bool(info["keyframe"]))
+        if est.solver_flag == 2:
+            traj.append((world.frame_times[k], est.latest_pose()[1].copy(), k))
+        if on_frame is not None:
+            on_frame(k)
+    return flags, traj
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    cfg, world = _config(), _world()
+    tic = np.asarray(cfg.tic_np)
+    qic = np.asarray(mat_to_quat(jnp.asarray(cfg.ric_np)))
+    est = JEstimator(cfg, JDims(B=10, Vo=4, F=256, N=2048))
+    est._gt_init = _gt_hook(world)
+    snap = {"path": str(tmp_path_factory.mktemp("snap") / "est.npz")}
+
+    def on_frame(k):
+        if k == SNAP_FRAME:
+            save_estimator(est, snap["path"])
+        if k == SNAP_FRAME + 1:
+            est.collect_marg()  # land this frame's marginalization
+            snap["after"] = _snapshot_state(est)
+            snap["packet"] = [np.asarray(a) for a in est.pose_graph_packets[-1]]
+
+    flags, traj = _run(est, world, tic, qic, on_frame)
+    return cfg, world, est, flags, traj, snap, tic, qic
+
+
+def _port_config():
+    from isvins_tpu_torch.config import WindowConfig, euroc_config
+
+    return euroc_config().replace(
+        window=WindowConfig(vo_size=4, all_size=10, max_features=256, max_imu_per_frame=64),
+        tic=(0.02, -0.01, 0.01),
+        ric=((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0)),
+    )
+
+
+def _with_solve_dtype(cfg, solve_dtype):
+    return cfg.replace(solver=dataclasses.replace(cfg.solver, solve_dtype=solve_dtype))
+
+
+# Per-dtype bounds of the teacher-forced frame. float64: the two packages
+# run the same math, so only summation order separates them (measured
+# ~1e-13); the marginalized information matrices (normalized by their
+# largest entry) get 1e-7, since their eigendecomposition and eigenvalue
+# truncation amplify that rounding (measured 7e-9). float32: Ps/Vs 1e-4,
+# Qs 1e-5, Bgs 1e-5; Bas gets 1e-4, because the accelerometer bias is the
+# window's weakest direction: each package's own f32 step lands 3.5e-4 from
+# its f64 step on this frame, and the two f32 steps (different summation
+# orders) sit 4.3e-5 apart.
+TF_TOL = {
+    "float32": dict(P=1e-4, V=1e-4, Q=1e-5, Ba=1e-4, Bg=1e-5, prior=1e-4, info=1e-3),
+    "float64": dict(P=1e-9, V=1e-9, Q=1e-9, Ba=1e-9, Bg=1e-9, prior=1e-9, info=1e-7),
+}
+
+
+@pytest.mark.parametrize("solve_dtype", ["float32", "float64"])
+def test_teacher_forced_frame(jax_run, solve_dtype):
+    """One steady frame from the same JAX snapshot, stepped by both
+    packages with 10 LM iterations at `solve_dtype`: states, the dragged +
+    marginalized priors and the pose-graph packet agree within TF_TOL."""
+    cfg, world, _, _, _, snap, tic, qic = jax_run
+    tol = TF_TOL[solve_dtype]
+    if solve_dtype == "float32":
+        ref, ref_packet = snap["after"], snap["packet"]
+    else:  # the JAX estimator's own f64 step from the same snapshot
+        jest = JEstimator(_with_solve_dtype(cfg, solve_dtype), JDims(B=10, Vo=4, F=256, N=2048))
+        jax_load_estimator(jest, snap["path"])
+        _feed(jest, world, SNAP_FRAME + 1, tic, qic)
+        jest.collect_marg()
+        ref = _snapshot_state(jest)
+        ref_packet = [np.asarray(a) for a in jest.pose_graph_packets[-1]]
+    est = TEstimator(_with_solve_dtype(_port_config(), solve_dtype),
+                     TDims(B=10, Vo=4, F=256, N=2048), device="cpu")
+    load_estimator(est, snap["path"])
+    _feed(est, world, SNAP_FRAME + 1, tic, qic)
+    est.collect_marg()
+    np.testing.assert_allclose(est.Ps, ref["P"], atol=tol["P"])
+    np.testing.assert_allclose(est.Vs, ref["V"], atol=tol["V"])
+    np.testing.assert_allclose(est.Qs, ref["Q"], atol=tol["Q"])
+    np.testing.assert_allclose(est.Bas, ref["Ba"], atol=tol["Ba"])
+    np.testing.assert_allclose(est.Bgs, ref["Bg"], atol=tol["Bg"])
+    for a, b in zip(_prior_leaves(est.priors), ref["priors"]):
+        if a.dtype.kind in "bi":
+            np.testing.assert_array_equal(a, b)
+        elif a.ndim >= 2 and a.shape[-1] == a.shape[-2]:  # sqrt-info blocks
+            ia, ib = np.swapaxes(a, -1, -2) @ a, np.swapaxes(b, -1, -2) @ b
+            scale = np.abs(ib).max() + 1e-300
+            np.testing.assert_allclose(ia / scale, ib / scale, atol=tol["info"])
+        else:
+            np.testing.assert_allclose(a, b, atol=tol["prior"])
+    pkt = est.pose_graph_packets[-1]
+    np.testing.assert_allclose(np.asarray(pkt.rel_dt), ref_packet[0], atol=tol["prior"])
+    est.close()
+
+
+def test_free_running(jax_run):
+    """Both packages over the whole sequence: the same keyframe decisions,
+    positions within 5 mm of JAX, and the test_e2e_noiseless bounds."""
+    cfg, world, jest, jflags, jtraj, _, tic, qic = jax_run
+    est = TEstimator(_port_config(), TDims(B=10, Vo=4, F=256, N=2048), device="cpu")
+    est._gt_init = _gt_hook(world)
+    flags, traj = _run(est, world, tic, qic)
+    est.close()
+    assert flags == jflags
+    assert [k for *_, k in traj] == [k for *_, k in jtraj]
+    gap = max(np.linalg.norm(p - q) for (_, p, _), (_, q, _) in zip(traj, jtraj))
+    assert gap <= 5e-3, gap
+    # tests/test_estimator_e2e.py:96-111 on the port alone
+    assert len(traj) >= 10
+    emax, emean = ate(traj, world)
+    assert emax < 0.05, (emax, emean)
+    assert len(est.pose_graph_packets) >= 5
+    assert np.isfinite(est.last_kld.get("forward", np.nan))
+    assert np.isfinite(est.last_kld.get("backward", np.nan))
+    assert est.failure_count == 0
+
+
+def test_triangulate_matches_reference(jax_run):
+    """The f64 DLT (SVD) and the steady path's device DLT (4x4 Gram eigh)
+    against the JAX _triangulate_batch on the final window of the JAX run,
+    for every track with >= 2 observations: both take the same relative
+    transform as the reference, so depths agree to f64 rounding of the
+    nullspace (rtol 1e-6)."""
+    from isvins_tpu.estimator.feature_manager import _triangulate_batch as jax_tri
+    from isvins_tpu_torch.estimator.estimator import device_triangulate
+    from isvins_tpu_torch.estimator.feature_manager import _triangulate_batch
+    from isvins_tpu_torch.solver import WindowState
+
+    _, _, jest, *_ = jax_run
+    fm = jest.f_manager
+    args = (fm.obs, fm.has_obs, fm.start, jest.Ps, jest.Qs, jest.tic, jest.qic)
+    ref = np.asarray(jax_tri(*map(jnp.asarray, args)))
+    rows = fm.active() & (fm.has_obs.sum(axis=1) >= 2)
+    assert rows.sum() >= 20
+    t = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a), dtype=dt)
+    obs, has, start = t(fm.obs), t(fm.has_obs, torch.bool), t(fm.start, torch.int64)
+    svd = _triangulate_batch(obs, has, start, t(jest.Ps), t(jest.Qs), t(jest.tic), t(jest.qic))
+    st = WindowState(P=t(jest.Ps), Q=t(jest.Qs), V=None, Ba=None, Bg=None,
+                     tic=t(jest.tic), qic=t(jest.qic), dep=None)
+    eig = device_triangulate(st, obs, has, start)
+    np.testing.assert_allclose(svd.numpy()[rows], ref[rows], rtol=1e-6)
+    np.testing.assert_allclose(eig.numpy()[rows], ref[rows], rtol=1e-6)
+
+
+def test_port_imports_no_jax():
+    """Every isvins_tpu_torch module, imported in a fresh interpreter,
+    leaves jax (and the JAX package) out of sys.modules."""
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import isvins_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'isvins_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'isvins_tpu')]\n"
+        "assert len(mods) >= 30, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
