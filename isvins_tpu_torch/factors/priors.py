@@ -119,6 +119,12 @@ def relpose_update_np(delta_t, delta_q, ti, Ri_q, tj, Rj_q,
     return delta_t_new, delta_q_new
 
 
+def relpose_update_anchor_np(delta_t, delta_q, ti, Ri_q, tj, Rj_q, Pj_new, Qj_new):
+    """The drag with frame i held at (ti, Ri_q) and only frame j moved, as
+    when a pose-graph edge is re-anchored (relative_pose_factor.h:119-124)."""
+    return relpose_update_np(delta_t, delta_q, ti, Ri_q, tj, Rj_q, ti, Ri_q, Pj_new, Qj_new)
+
+
 def se3_prior_update_np(t_meas, q_meas, Pi_old, Qi_old, Pi_new, Qi_new):
     r_t = np.asarray(Pi_old) - np.asarray(t_meas)
     r_q = quat_mul_np(quat_conj_np(np.asarray(q_meas)), np.asarray(Qi_old))

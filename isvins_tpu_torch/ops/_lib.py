@@ -39,6 +39,7 @@ _SIGNATURES = {
     "isv_imu_rows": "p" * 20 + "i",
     "isv_schur_corr": "p" * 6 + "ii",
     "isv_linstep_solve": "p" * 10 + "iiii",
+    "isv_retrieval_scores": "p" * 5 + "ii",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,11 +1,48 @@
-"""Estimator snapshots (port of isvins_tpu/utils/checkpoint.py
-`load_estimator`). The npz written by the JAX package's `save_estimator` is
-the contract: its keys are read unchanged, so a JAX run can be resumed by
-the port. Saving and the pose-graph snapshot are not ported yet."""
+"""Snapshots (port of isvins_tpu/utils/checkpoint.py `load_estimator` and
+`load_pose_graph`). The npz files written by the JAX package's
+`save_estimator` and `save_pose_graph` are the contract: their keys are
+read unchanged, so a JAX run or map can be resumed by the port. Saving is
+not ported yet."""
 
 from __future__ import annotations
 
 import numpy as np
+
+_DB_FIELDS = [
+    "ts", "seq", "vio_t", "vio_q", "opt_t", "opt_q", "cov",
+    "edge_dt", "edge_dq", "edge_sqrt", "edge_valid",
+    "rp_q", "rp_sqrt", "rp_valid",
+    "loop_idx", "loop_dt", "loop_dq", "loop_weight",
+    "kp_desc", "kp_norm", "kp_valid",
+    "win_pts3d", "win_desc", "win_valid",
+    "ret_desc", "ret_valid",
+]
+
+
+def load_pose_graph(path: str, capacity: int = 0, device="cpu"):
+    """A KeyframeDB on `device` from a pose-graph snapshot. The BoW state
+    is restored when the snapshot has it (older ones re-freeze the
+    vocabulary from the loaded keyframes on the next adds); the snapshot's
+    vocabulary width wins."""
+    from ..posegraph.keyframe_db import KeyframeDB
+
+    z = np.load(path, allow_pickle=False)
+    n = int(z["n"])
+    db = KeyframeDB(max(int(z["K"]), capacity), int(z["D"]), int(z["P"]), device=device)
+    for f in _DB_FIELDS:
+        getattr(db, f)[:n] = z[f]
+    for i in range(n):
+        db.sync_ret_row(i)
+    if "vocab" in z.files:
+        db.vocab = np.array(z["vocab"])
+        db.W = db.vocab.shape[0]
+        db.vocab_frozen = bool(z["vocab_frozen"])
+        db.df = np.array(z["df"])
+        db.tf = np.zeros((db.K, db.W), np.float32)
+        db.tf[:n] = z["tf"]
+        db._wg_centers = None  # the 2-level word index rebuilds lazily
+    db.n = n
+    return db
 
 
 def load_estimator(est, path: str):

@@ -1,6 +1,8 @@
 """Synthetic visual-inertial world generator (numpy, host-side); a copy of
-the world generator and `project` of isvins_tpu/utils/synthetic.py (the
-image renderers come with the tracker port).
+the world generator, `RoomRenderer` and `project` of
+isvins_tpu/utils/synthetic.py (the other image renderers come with the
+tracker port). RoomRenderer's optional camera model is the port's
+(frontend.camera), called on f64 CPU tensors.
 
 Provides ground-truth trajectories with analytically consistent IMU
 measurements and landmark observations — the test bed for the window solver,
@@ -13,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 # Batched numpy quaternion helpers (wxyz, leading batch dims).
@@ -180,6 +183,267 @@ def make_world(
     )
 
 
+class RoomRenderer:
+    """Polygonal textured-room renderer: the camera moves inside a convex
+    N-gon 'room' of large richly-textured wall planes (machine-hall-like
+    imagery). Every pixel ray hits exactly one wall — no occlusion
+    boundaries, no untextured background, perspective-exact appearance —
+    so LK tracks at the sub-0.1 px level the estimator's noise model
+    assumes, and every Shi-Tomasi refill lands on real trackable texture.
+
+    render(frame) returns (img, px, inb) with px/inb the GT projections of
+    world.landmarks for API compatibility with StampRenderer/PatchRenderer
+    (the landmarks themselves are not drawn)."""
+
+    def __init__(self, world: SynthWorld, cam_cfg, tic, qic, seed: int = 99,
+                 n_walls: int = 28, wall_radius: float = 9.0,
+                 wall_z: float = 5.0, tex_res: int = 288,
+                 noise_sigma: float = 1.5, radius_jitter: float = 1.0,
+                 camera_model=None,
+                 motion_blur: float = 0.0,
+                 exposure_flicker: float = 0.0,
+                 noise_burst: float = 0.0,
+                 n_occluders: int = 0):
+        """Adversarial nuisance knobs (all default off; VERDICT r04 #7 — the
+        photometric/dynamic effects real EuRoC MH/V sequences have and the
+        LK+RANSAC+loop-verification stack exists to survive):
+
+        - motion_blur: exposure time in seconds; the frame is smeared along
+          the global image-space flow implied by the camera's angular
+          velocity (rotational blur dominates on EuRoC's fast yaw sweeps).
+        - exposure_flicker: relative amplitude of a per-frame global gain
+          oscillation + random component (auto-exposure hunting).
+        - noise_burst: every ~25 frames, 3 consecutive frames get this many
+          EXTRA sigmas of sensor noise (EuRoC's dark-corridor shot noise).
+        - n_occluders: textured disc sprites orbiting INSIDE the room
+          (always nearer than the walls), moving against the camera motion —
+          features locked onto them violate the epipolar constraint and must
+          be culled by the tracker's F-RANSAC
+          (feature_tracker_simple.cpp:153-180 semantics)."""
+        self.world = world
+        self.cam = cam_cfg
+        self.tic = np.asarray(tic)
+        self.qic = np.asarray(qic)
+        self.K = np.array(
+            [[cam_cfg.fx, 0, cam_cfg.cx], [0, cam_cfg.fy, cam_cfg.cy], [0, 0, 1]]
+        )
+        self.Kinv = np.linalg.inv(self.K)
+        # distortion-aware rendering: when a camera model (frontend.camera)
+        # is given, pixel rays come from its lift_projective (radtan/fisheye
+        # distortion included) instead of the plain pinhole K — the rendered
+        # imagery then exercises the tracker's undistortion path exactly like
+        # real 752x480 EuRoC frames
+        self.camera_model = camera_model
+        self._ray_cache = None
+        self.noise_sigma = noise_sigma
+        from scipy.ndimage import gaussian_filter
+
+        # wall geometry: N-gon at wall_radius with per-wall radial jitter.
+        # The jitter breaks scene planarity inside one FOV — a view
+        # dominated by a single plane is the classic degenerate config for
+        # 8-point essential estimation, and real rooms aren't that flat
+        g_rng = np.random.default_rng(seed + 7)
+        ang = (np.arange(n_walls) + 0.5) * 2 * np.pi / n_walls
+        radii = wall_radius + g_rng.uniform(-radius_jitter, radius_jitter, n_walls)
+        self.centers = np.stack(
+            [radii * np.cos(ang), radii * np.sin(ang), np.zeros(n_walls)],
+            axis=1,
+        )
+        self.normals = -np.stack(
+            [np.cos(ang), np.sin(ang), np.zeros(n_walls)], axis=1
+        )  # inward
+        self.u_axes = np.stack(
+            [-np.sin(ang), np.cos(ang), np.zeros(n_walls)], axis=1
+        )
+        self.v_axes = np.tile(np.array([0.0, 0.0, 1.0]), (n_walls, 1))
+        # widths sized so jittered walls still close the room (overlap a bit;
+        # nearer wall wins by the depth test, seams stay 3D-consistent)
+        self.half_u = (wall_radius + radius_jitter) * np.tan(np.pi / n_walls) * 1.35
+        self.half_v = wall_z
+
+        self.motion_blur = float(motion_blur)
+        self.exposure_flicker = float(exposure_flicker)
+        self.noise_burst = float(noise_burst)
+        self.n_occluders = int(n_occluders)
+        if self.n_occluders:
+            o_rng = np.random.default_rng(seed + 31)
+            self._occ_r = o_rng.uniform(4.5, 6.5, self.n_occluders)
+            self._occ_w = o_rng.uniform(-0.5, 0.5, self.n_occluders)
+            self._occ_ph = o_rng.uniform(0, 2 * np.pi, self.n_occluders)
+            self._occ_z = o_rng.uniform(-0.8, 0.8, self.n_occluders)
+            self._occ_zw = o_rng.uniform(0.3, 0.9, self.n_occluders)
+            self._occ_rad = o_rng.uniform(0.25, 0.5, self.n_occluders)  # meters
+            # per-occluder texture (multi-scale so it is TRACKABLE — the
+            # point is features that lock on and then move wrongly)
+            from scipy.ndimage import gaussian_filter
+            To = 48
+            self._occ_tex = np.zeros((self.n_occluders, To, To))
+            for m in range(self.n_occluders):
+                t_rng = np.random.default_rng(seed * 77 + m)
+                mid = gaussian_filter(t_rng.uniform(0, 1, (To, To)), 3.0)
+                fine = gaussian_filter(t_rng.uniform(0, 1, (To, To)), 0.8)
+                s = 2.5 * (mid - mid.mean()) + 1.0 * (fine - fine.mean())
+                self._occ_tex[m] = 60.0 + s / np.abs(s).std() * 25.0
+
+        # per-wall multi-scale textures (corner structure at every location)
+        T = tex_res
+        self.tex_res = T
+        self.textures = np.zeros((n_walls, T, T))
+        for m in range(n_walls):
+            t_rng = np.random.default_rng(seed * 1000 + m)
+            coarse = gaussian_filter(t_rng.uniform(0, 1, (T, T)), T / 16.0)
+            mid = gaussian_filter(t_rng.uniform(0, 1, (T, T)), T / 48.0)
+            fine = gaussian_filter(t_rng.uniform(0, 1, (T, T)), 1.5)
+            s = (
+                3.0 * (coarse - coarse.mean())
+                + 2.0 * (mid - mid.mean())
+                + 0.8 * (fine - fine.mean())
+            )
+            self.textures[m] = 110.0 + s / np.abs(s).std() * 22.0
+
+    def render(self, frame: int):
+        H, W = self.cam.height, self.cam.width
+        world = self.world
+        Pb, Qb = world.P[frame], world.Q[frame]
+        R_wb = _q_to_mat(Qb)
+        R_bc = _q_to_mat(self.qic)
+        R_wc = R_wb @ R_bc
+        C_w = Pb + R_wb @ self.tic
+
+        if self.camera_model is not None:
+            if self._ray_cache is None:
+                xs, ys = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+                px = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1)
+                un = self.camera_model.lift_projective(torch.as_tensor(px)).numpy()
+                self._ray_cache = un.reshape(H, W, 3)
+            rays = self._ray_cache
+        else:
+            xs, ys = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+            rays = np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ self.Kinv.T
+        d_w = rays @ R_wc.T  # (H,W,3), not normalized (t is then metric-z
+        # along the optical axis — irrelevant, we only need the hit point)
+
+        img = np.zeros((H, W))
+        best_t = np.full((H, W), np.inf)
+        for m in range(len(self.centers)):
+            n = self.normals[m]
+            denom = d_w @ n
+            num = (self.centers[m] - C_w) @ n
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = num / denom
+            hit = (denom < -1e-9) & (t > 1e-6) & (t < best_t)
+            if not hit.any():
+                continue
+            p = C_w + t[..., None] * d_w  # (H,W,3) world hit points
+            rel = p - self.centers[m]
+            a = rel @ self.u_axes[m]
+            b = rel @ self.v_axes[m]
+            inside = hit & (np.abs(a) <= self.half_u) & (np.abs(b) <= self.half_v)
+            if not inside.any():
+                continue
+            T = self.tex_res
+            fx = np.clip((a / self.half_u + 1) * 0.5 * (T - 1), 0, T - 1 - 1e-6)
+            fy = np.clip((b / self.half_v + 1) * 0.5 * (T - 1), 0, T - 1 - 1e-6)
+            ix = fx.astype(np.int64)
+            iy = fy.astype(np.int64)
+            wx = fx - ix
+            wy = fy - iy
+            tex = self.textures[m]
+            val = (
+                tex[iy, ix] * (1 - wx) * (1 - wy)
+                + tex[iy, ix + 1] * wx * (1 - wy)
+                + tex[iy + 1, ix] * (1 - wx) * wy
+                + tex[iy + 1, ix + 1] * wx * wy
+            )
+            img = np.where(inside, val, img)
+            best_t = np.where(inside, t, best_t)
+
+        rng = np.random.default_rng(123456 + frame)
+        t_now = float(world.frame_times[frame])
+
+        # moving occluders: textured disc sprites inside the room, composited
+        # over the walls wherever they are nearer (they always are)
+        if self.n_occluders:
+            R_cw_full = R_wc.T
+            for m in range(self.n_occluders):
+                ang = self._occ_w[m] * t_now + self._occ_ph[m]
+                c_w = np.array([
+                    self._occ_r[m] * np.cos(ang),
+                    self._occ_r[m] * np.sin(ang),
+                    self._occ_z[m] + 0.5 * np.sin(self._occ_zw[m] * t_now),
+                ])
+                pc = R_cw_full @ (c_w - C_w)
+                if pc[2] < 1.0:
+                    continue
+                uv = pc[:2] / pc[2]
+                cx = self.K[0, 0] * uv[0] + self.K[0, 2]
+                cy = self.K[1, 1] * uv[1] + self.K[1, 2]
+                r_px = self.K[0, 0] * self._occ_rad[m] / pc[2]
+                if r_px < 2:
+                    continue
+                x0 = max(int(cx - r_px), 0)
+                x1 = min(int(cx + r_px) + 1, W)
+                y0 = max(int(cy - r_px), 0)
+                y1 = min(int(cy + r_px) + 1, H)
+                if x1 <= x0 or y1 <= y0:
+                    continue
+                ys, xs_ = np.mgrid[y0:y1, x0:x1]
+                rr = np.sqrt((xs_ - cx) ** 2 + (ys - cy) ** 2) / max(r_px, 1e-6)
+                inside = rr < 1.0
+                To = self._occ_tex.shape[1]
+                tx = np.clip(((xs_ - cx) / r_px + 1) * 0.5 * (To - 1), 0, To - 1).astype(int)
+                ty = np.clip(((ys - cy) / r_px + 1) * 0.5 * (To - 1), 0, To - 1).astype(int)
+                patch = self._occ_tex[m][ty, tx]
+                sub = img[y0:y1, x0:x1]
+                img[y0:y1, x0:x1] = np.where(inside, patch, sub)
+
+        # rotational motion blur along the global flow of the camera's
+        # angular velocity over the exposure time
+        if self.motion_blur > 0 and 0 < frame < len(world.frame_times) - 1:
+            dt = world.frame_times[frame + 1] - world.frame_times[frame - 1]
+            dq = _q_mul(_q_conj(world.Q[frame - 1]), world.Q[frame + 1])
+            v = dq[1:]
+            wn = np.clip(dq[0], -1, 1)
+            angv = 2 * np.arctan2(np.linalg.norm(v), wn)
+            axis = v / max(np.linalg.norm(v), 1e-12)
+            w_body = axis * angv / max(dt, 1e-9)
+            w_cam = R_bc.T @ w_body
+            flow = self.K[0, 0] * np.array([-w_cam[1], w_cam[0]]) * self.motion_blur
+            if np.linalg.norm(flow) > 0.5:
+                from scipy.ndimage import shift as _nd_shift
+                acc = np.zeros_like(img)
+                taps = 5
+                for s in np.linspace(-0.5, 0.5, taps):
+                    acc += _nd_shift(img, (s * flow[1], s * flow[0]),
+                                     order=1, mode="nearest")
+                img = acc / taps
+
+        # auto-exposure hunting: per-frame global gain + offset
+        if self.exposure_flicker > 0:
+            g = 1.0 + self.exposure_flicker * (
+                0.7 * np.sin(2.0 * np.pi * 1.3 * t_now)
+                + 0.3 * rng.normal())
+            img = img * g + 20.0 * self.exposure_flicker * rng.normal()
+
+        sigma = self.noise_sigma
+        if self.noise_burst > 0 and (frame % 25) < 3:
+            sigma = sigma + self.noise_burst
+        img = img + rng.normal(scale=sigma, size=img.shape)
+
+        pts, depth, vis = project(world, frame, self.tic, self.qic)
+        if self.camera_model is not None:
+            px = self.camera_model.space_to_plane(torch.as_tensor(pts)).numpy()
+        else:
+            px = (self.K @ pts.T).T[:, :2]
+        h = 8
+        inb = (
+            vis
+            & (px[:, 0] > h) & (px[:, 0] < W - h)
+            & (px[:, 1] > h) & (px[:, 1] < H - h)
+        )
+        return np.clip(img, 0, 255), px, inb
+
+
 def project(world: SynthWorld, frame: int, tic, qic, px_noise: float = 0.0, rng=None):
     """Project all landmarks into camera of `frame`. Returns (pts (M,3)
     normalized [x,y,1], depth (M,), visible (M,))."""
@@ -197,3 +461,23 @@ def project(world: SynthWorld, frame: int, tic, qic, px_noise: float = 0.0, rng=
         xy = xy + rng.normal(size=xy.shape) * px_noise
     pts = np.concatenate([xy, np.ones((len(xy), 1))], axis=-1)
     return pts, depth, visible
+
+
+def make_retrieval_db(K: int, R: int = 64, seed: int = 0):
+    """A seeded keyframe-retrieval problem for kernel K6 (ops.retrieval_scores),
+    built as the reference's kernel test builds it (tests/test_pallas_ops.py):
+    random 256-bit descriptors, keyframe 3 a full and keyframe 17 a half
+    duplicate of the query, keyframe 9 masked out, the last five query rows
+    invalid. Returns host numpy (qd (R,8) uint32, qv (R,) bool, dbd (K,R,8)
+    uint32, dbv (K,R) bool); the port carries the words as int32 holding the
+    same bits (`.view(np.int32)`). Needs K >= 18."""
+    rng = np.random.default_rng(seed)
+    qd = rng.integers(0, 2**32, size=(R, 8), dtype=np.uint32)
+    dbd = rng.integers(0, 2**32, size=(K, R, 8), dtype=np.uint32)
+    dbd[3] = qd
+    dbd[17, : R // 2] = qd[: R // 2]
+    qv = np.ones(R, bool)
+    qv[-5:] = False
+    dbv = np.ones((K, R), bool)
+    dbv[9] = False
+    return qd, qv, dbd, dbv

@@ -112,6 +112,7 @@ def jax_run(tmp_path_factory):
             est.collect_marg()  # land this frame's marginalization
             snap["after"] = _snapshot_state(est)
             snap["packet"] = [np.asarray(a) for a in est.pose_graph_packets[-1]]
+            snap["kfp"] = est.keyframe_points[-1]
 
     flags, traj = _run(est, world, tic, qic, on_frame)
     return cfg, world, est, flags, traj, snap, tic, qic
@@ -139,10 +140,14 @@ def _with_solve_dtype(cfg, solve_dtype):
 # Qs 1e-5, Bgs 1e-5; Bas gets 1e-4, because the accelerometer bias is the
 # window's weakest direction: each package's own f32 step lands 3.5e-4 from
 # its f64 step on this frame, and the two f32 steps (different summation
-# orders) sit 4.3e-5 apart.
+# orders) sit 4.3e-5 apart. The keyframe points exported with the packet
+# follow the poses and depths: measured 2.5e-5 m (f32) and 1.1e-13 m (f64)
+# in points_w, 1.3e-7 and 1.8e-15 on the normalized plane.
 TF_TOL = {
-    "float32": dict(P=1e-4, V=1e-4, Q=1e-5, Ba=1e-4, Bg=1e-5, prior=1e-4, info=1e-3),
-    "float64": dict(P=1e-9, V=1e-9, Q=1e-9, Ba=1e-9, Bg=1e-9, prior=1e-9, info=1e-7),
+    "float32": dict(P=1e-4, V=1e-4, Q=1e-5, Ba=1e-4, Bg=1e-5, prior=1e-4, info=1e-3,
+                    points_w=1e-4, pts_norm=1e-6),
+    "float64": dict(P=1e-9, V=1e-9, Q=1e-9, Ba=1e-9, Bg=1e-9, prior=1e-9, info=1e-7,
+                    points_w=1e-9, pts_norm=1e-9),
 }
 
 
@@ -150,11 +155,12 @@ TF_TOL = {
 def test_teacher_forced_frame(jax_run, solve_dtype):
     """One steady frame from the same JAX snapshot, stepped by both
     packages with 10 LM iterations at `solve_dtype`: states, the dragged +
-    marginalized priors and the pose-graph packet agree within TF_TOL."""
+    marginalized priors, the pose-graph packet and the keyframe points
+    exported with it agree within TF_TOL."""
     cfg, world, _, _, _, snap, tic, qic = jax_run
     tol = TF_TOL[solve_dtype]
     if solve_dtype == "float32":
-        ref, ref_packet = snap["after"], snap["packet"]
+        ref, ref_packet, ref_kfp = snap["after"], snap["packet"], snap["kfp"]
     else:  # the JAX estimator's own f64 step from the same snapshot
         jest = JEstimator(_with_solve_dtype(cfg, solve_dtype), JDims(B=10, Vo=4, F=256, N=2048))
         jax_load_estimator(jest, snap["path"])
@@ -162,6 +168,7 @@ def test_teacher_forced_frame(jax_run, solve_dtype):
         jest.collect_marg()
         ref = _snapshot_state(jest)
         ref_packet = [np.asarray(a) for a in jest.pose_graph_packets[-1]]
+        ref_kfp = jest.keyframe_points[-1]
     est = TEstimator(_with_solve_dtype(_port_config(), solve_dtype),
                      TDims(B=10, Vo=4, F=256, N=2048), device="cpu")
     load_estimator(est, snap["path"])
@@ -183,6 +190,13 @@ def test_teacher_forced_frame(jax_run, solve_dtype):
             np.testing.assert_allclose(a, b, atol=tol["prior"])
     pkt = est.pose_graph_packets[-1]
     np.testing.assert_allclose(np.asarray(pkt.rel_dt), ref_packet[0], atol=tol["prior"])
+    # the keyframe points exported with that packet: the pose graph's inputs
+    kfp = est.keyframe_points[-1]
+    assert len(kfp.ids) >= 20
+    np.testing.assert_array_equal(kfp.ids, ref_kfp.ids)
+    assert float(kfp.ts) == float(ref_kfp.ts)
+    np.testing.assert_allclose(kfp.points_w, ref_kfp.points_w, atol=tol["points_w"])
+    np.testing.assert_allclose(kfp.pts_norm, ref_kfp.pts_norm, atol=tol["pts_norm"])
     est.close()
 
 
@@ -236,8 +250,9 @@ def test_triangulate_matches_reference(jax_run):
 
 
 def test_port_imports_no_jax():
-    """Every isvins_tpu_torch module, imported in a fresh interpreter,
-    leaves jax (and the JAX package) out of sys.modules."""
+    """Every isvins_tpu_torch module (the pose graph's among them), imported
+    in a fresh interpreter, leaves jax (and the JAX package) out of
+    sys.modules."""
     root = Path(__file__).resolve().parents[1]
     code = (
         "import importlib, pkgutil, sys\n"
@@ -245,7 +260,11 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'isvins_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'isvins_tpu')]\n"
-        "assert len(mods) >= 30, mods\n"
+        "new = {'isvins_tpu_torch.posegraph.builder', 'isvins_tpu_torch.posegraph.keyframe_db',\n"
+        "       'isvins_tpu_torch.posegraph.optimize', 'isvins_tpu_torch.posegraph.brief',\n"
+        "       'isvins_tpu_torch.ops.hamming', 'isvins_tpu_torch.initial.pnp',\n"
+        "       'isvins_tpu_torch.frontend.camera', 'isvins_tpu_torch.frontend.image_ops'}\n"
+        "assert len(mods) >= 45 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K4 of isvins_tpu_torch on the card, held against
-their plain PyTorch versions on the same card inputs at the product shapes.
+"""The CUDA kernels K1-K4 and K6 of isvins_tpu_torch on the card, held
+against their plain PyTorch versions on the same card inputs at the product
+shapes.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only PyTorch and CUDA:
@@ -10,6 +11,7 @@ Each test decides inside itself whether a card is present and skips with a
 reason when there is none (deciding at import time would let xdist workers
 collect different tests)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,6 +29,16 @@ CASES = {
     "linstep": (ops.linstep, lambda *a: ops.linstep_ref(*a, D), 2e-3,
                 lambda r: 2e-3 * float(r.abs().max())),
 }
+
+
+def _k6_inputs(dev, K):
+    """The first K keyframes of the seeded retrieval problem (planted
+    duplicates of the query at keyframes 3 and 17), R = 64, thresh = 40."""
+    from isvins_tpu_torch.utils.synthetic import make_retrieval_db
+
+    qd, qv, dbd, dbv = make_retrieval_db(max(K, 18))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return t(qd.view(np.int32)), t(qv), t(dbd[:K].view(np.int32)), t(dbv[:K]), 40
 
 
 def _card():
@@ -95,7 +107,52 @@ def test_solve_window_on_card_runs_through_kernels():
     torch.cuda.synchronize()
     it = info["iterations"]
     assert ops.launch_counts() == {"proj_rows": it + 1, "imu_rows": it + 1,
-                                   "schur_corr": it, "linstep": it}
+                                   "schur_corr": it, "linstep": it, "retrieval_scores": 0}
     assert all(bool(torch.isfinite(a).all()) for a in st)
     _, cost_cpu = solve_window(*args("cpu"), dims, iters=10)
     assert abs(float(cost) - float(cost_cpu)) <= 1e-3 * float(cost_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 23, 256, 4096])
+def test_retrieval_scores_exact_on_card(K):
+    """K6 at R = 64, thresh = 40, at the pose-graph path's first and largest
+    database (K = 1, 23), the slice's capacity and the default one: one
+    launch, counted once, exactly equal to its plain version (integer work
+    up to one IEEE division)."""
+    dev = _card()
+    args = _k6_inputs(dev, K)
+    before = ops.retrieval_scores.launches
+    out = ops.retrieval_scores(*args)
+    torch.cuda.synchronize()
+    assert ops.retrieval_scores.launches == before + 1
+    ref = ops.retrieval_scores_ref(*args)
+    assert out.dtype == torch.float32 and out.shape == (K,)
+    assert torch.equal(out, ref)
+    if K >= 18:
+        assert float(ref[3]) > 0.9 and float(ref[9]) == 0.0
+
+
+@pytest.mark.gpu
+def test_retrieval_scores_raises_on_bad_cuda_input():
+    """Descriptor words must be int32 (uint32 and int64 raise), masks bool,
+    the database contiguous with R = 64 descriptors per keyframe; nothing
+    falls back to the plain version."""
+    dev = _card()
+    qd, qv, dbd, dbv, thresh = _k6_inputs(dev, 32)
+    before = ops.retrieval_scores.launches
+    with pytest.raises(TypeError):
+        ops.retrieval_scores(qd.view(torch.uint32), qv, dbd, dbv, thresh)
+    with pytest.raises(TypeError):
+        ops.retrieval_scores(qd, qv, dbd.to(torch.int64), dbv, thresh)
+    with pytest.raises(TypeError):
+        ops.retrieval_scores(qd, qv.to(torch.uint8), dbd, dbv, thresh)
+    with pytest.raises(ValueError):  # a strided view of a wider database
+        wide = torch.zeros((32, 64, 16), dtype=torch.int32, device=dev)
+        ops.retrieval_scores(qd, qv, wide[:, :, :8], dbv, thresh)
+    with pytest.raises(ValueError):
+        ops.retrieval_scores(qd, qv, dbd.transpose(0, 1), dbv.T, thresh)
+    with pytest.raises(ValueError):  # R = 32: the kernel's block is 64 descriptors
+        ops.retrieval_scores(qd[:32], qv[:32], dbd[:, :32].contiguous(),
+                             dbv[:, :32].contiguous(), thresh)
+    assert ops.retrieval_scores.launches == before
