@@ -7,10 +7,15 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no CUDA -> exit 2
   2. build   — compile csrc/*.cu (nvcc, sm_90a) into build/kernels/
-  3. kernels — K1-K4 and K6 against their plain PyTorch versions at the
-               product shapes, with the reference tests' tolerances (K6
-               exact, at K = 23, the posegraph path's largest, and at 1,
-               256 and 4096); CUDA-event times
+  3. kernels — K1-K7 against their plain PyTorch versions at the product
+               shapes, with the reference tests' tolerances (K5 at NB = 1,
+               4, 8, 16, 32, and K1 and K2 on the flattened rows of 4 and
+               of 16 sequences: the multiseq path's two batches; K6 exact,
+               at K = 23, the posegraph path's largest, and at 1, 256 and
+               4096; K7 with an empty landmark);
+               CUDA-event times of kernel, plain version and, where one
+               PyTorch call computes the same function, that call; each
+               kernel's bound from its bytes and operations
   4. solve   — solve_window on make_batch_problem(1, (18, 8, 1000, 3072)),
                10 LM iterations, f32: vio_window_solve_frames_per_s and the
                launch counts of K1-K4 against the builds/iterations it ran
@@ -26,9 +31,22 @@ exits non-zero:
                query of the drive replayed against the plain version, and
                the last card (f32) pose-graph solve against the same solve
                on the CPU in f64
+  7. multiseq — (a) make_batch_problem(16, (18, 8, 1000, 3072)) through
+               sharded_batch_solve on the card, 10 iterations, against the
+               16 problems solved one by one: every sequence's state after
+               1, 2 and 3 iterations, and the 10-iteration results through
+               the f64 solves; K5 launches = LM iterations, K1 = K2 =
+               evaluations, K3 = K4 = 0; batched_x8/x16/x32 throughput. (b) four Estimators at the EuRoC window on four
+               seeded worlds, coordinated by MultiSequenceSolver, against
+               the same four run alone
 Each path's launch counts are set to 0 just before it and read just after.
-Second-to-last line: one JSON object with the per-kernel records (launches
-from the posegraph path, which runs all five kernels); last line:
+  8. reduce  — K7's own path (the package has no caller for it, as the
+               JAX package has none for its TPU kernel): one LM linear step
+               of a product window taken unfused in the full layout, K7
+               then K5 at NB = 1, against the fused K4 step
+Second-to-last line: one JSON object with the per-kernel records of all
+seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
+multiseq path, K7 from the reduce path); last line:
 {"ok": true, "device": {...}}.
 """
 
@@ -48,9 +66,25 @@ KERNEL_META = {
     "imu_rows": ("isvins_tpu_torch/csrc/imu_rows.cu", "isvins_tpu/ops/imu_pallas.py:352"),
     "schur_corr": ("isvins_tpu_torch/csrc/schur_corr.cu", "isvins_tpu/ops/schur_pallas.py:118"),
     "linstep": ("isvins_tpu_torch/csrc/linstep.cu", "isvins_tpu/ops/linstep_pallas.py:481"),
+    "chol_solve_batched": ("isvins_tpu_torch/csrc/chol_batched.cu",
+                           "isvins_tpu/ops/linstep_pallas.py:424"),
     "retrieval_scores": ("isvins_tpu_torch/csrc/hamming.cu",
                          "isvins_tpu/ops/hamming_pallas.py:122"),
+    "schur_reduce": ("isvins_tpu_torch/csrc/schur_reduce.cu",
+                     "isvins_tpu/ops/schur_pallas.py:61"),
 }
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the
+# tensor cores, and HBM3. K6's integer xor/popcount/add work is counted at
+# the same rate: it runs on the same cores.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# The multiseq path's batches: (a) this many bare product windows, (b) one
+# estimator per seeded world. The kernels phase checks K1, K2 and K5 at both
+# sequence counts.
+MULTISEQ_NB = 16
+MULTISEQ_SEEDS = (11, 12, 13, 14)
 
 
 def phase_device():
@@ -162,8 +196,29 @@ def kernel_inputs(dev, seed=0):
     H[ex0:, ex0:] += C[n_pose:, n_pose:]
     lin = (f32(H), f32(rng.normal(size=D)), f32(W), f32(h), f32(bl),
            torch.tensor(1e-3, dtype=torch.float32, device=dev), n_pose)
+    # K7 as tests/test_pallas_ops.py:68-81: symmetric H, W at the full width,
+    # one empty landmark
+    A7 = rng.normal(size=(D, D))
+    h7 = np.abs(rng.normal(size=F)) + 0.1
+    h7[7] = 0.0
+    reduce = (f32(A7 + A7.T), f32(rng.normal(size=D)), f32(rng.normal(size=(F, D))), f32(h7),
+              f32(rng.normal(size=F)))
     return {"proj_rows": proj, "imu_rows": imu_args, "schur_corr": schur, "linstep": lin,
-            "retrieval_scores": retrieval_inputs(dev, 23, seed)}
+            "chol_solve_batched": chol_inputs(dev, MULTISEQ_NB, seed),
+            "retrieval_scores": retrieval_inputs(dev, 23, seed), "schur_reduce": reduce}
+
+
+def chol_inputs(dev, NB, seed=0, D=276):
+    """K5 inputs: NB SPD systems built as tests/test_pallas_ops.py:135-148
+    builds H (A A^T + 200 I), each from its own draw."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 1000 * NB)
+    A = rng.normal(size=(NB, D, D + 60))
+    H = A @ A.transpose(0, 2, 1) + 200 * np.eye(D)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return f32(H), f32(rng.normal(size=(NB, D)))
 
 
 def retrieval_inputs(dev, K, seed=0, thresh=40):
@@ -196,6 +251,86 @@ def _assert_close(name, out, ref, rtol, atol_fn):
                 f"atol={atol:.3g}; max abs err {float((o - r).abs().max()):.3g}")
 
 
+def kernel_work(name, args):
+    """(bytes, operations) of one call: every input read once and every
+    output written once, and the arithmetic the function needs on these
+    inputs. K1's and K2's per-row operation counts are estimates read off
+    their sources (~600 and ~1,500); either way bytes bound them."""
+    if name == "proj_rows":
+        N = args[0].shape[0]
+        return N * ((21 + 28) * 4 + 1) + 7 * 4, 600 * N
+    if name == "imu_rows":
+        n = args[0].shape[0]
+        return n * (274 + 465) * 4 + 3 * 4, 1500 * n
+    if name == "schur_corr":
+        F, Dr = args[0].shape
+        return (F * Dr + 2 * F + Dr * Dr + Dr) * 4, 2 * F * Dr * (Dr + 1)
+    if name == "linstep":
+        H, _, W = args[:3]
+        D, (F, Dr) = H.shape[0], W.shape
+        return ((D * D + D + F * Dr + 2 * F + 1 + D + F) * 4,
+                2 * F * Dr * (Dr + 1) + D ** 3 // 3 + 2 * D * D + 2 * F * Dr)
+    if name == "chol_solve_batched":
+        NB, D = args[1].shape
+        return NB * (D * D + 2 * D) * 4, NB * (D ** 3 // 3 + 2 * D * D)
+    if name == "retrieval_scores":
+        R, words = args[0].shape
+        K = args[2].shape[0]
+        # per pair of descriptors: xor, popcount and add per word
+        return (K + 1) * (R * words * 4 + R) + K * 4, K * R * R * words * 3
+    if name == "schur_reduce":
+        F, D = args[2].shape
+        return (2 * D * D + F * D + 2 * F + 2 * D) * 4, 2 * F * D * D + 2 * F * D
+    raise KeyError(name)
+
+
+def kernel_bound(name, args):
+    """bound_ms and which side bounds it, from this call's inputs."""
+    nbytes, nops = kernel_work(name, args)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_call(name, args):
+    """The one PyTorch call that computes the same function, where there is
+    one (timed here, used nowhere in the port); else None."""
+    import torch
+
+    if name == "schur_corr":
+        W, h, _ = args
+        return lambda: W.T @ (W / h[:, None])
+    if name == "chol_solve_batched":
+        H, b = args
+        return lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky(H))
+    if name == "schur_reduce":
+        H, _, W, h, _ = args
+        h_safe = torch.where(h > 1e-12, h, torch.ones_like(h))
+        return lambda: torch.addmm(H, W.T, W / h_safe[:, None], alpha=-1)
+    return None
+
+
+def _measure(name, kern, plain, args, rtol, atol_fn, reps=100, plain_reps=100):
+    """One kernel at one shape: agreement with its plain version, then the
+    CUDA-event times and the bound."""
+    import torch
+
+    out = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    _assert_close(name, out, ref, rtol, atol_fn)
+    lib = library_call(name, args)
+    rec = {"max_abs_err": _max_err(out, ref), "ms": cuda_ms(lambda: kern(*args), reps),
+           "plain_ms": cuda_ms(lambda: plain(*args), plain_reps), **kernel_bound(name, args),
+           "library_ms": cuda_ms(lib, reps) if lib is not None else None}
+    lib_txt = f" library {rec['library_ms'] * 1e3:.2f} us" if lib is not None else ""
+    print(f"[kernels] {name}: max_abs_err={rec['max_abs_err']:.3g} kernel {rec['ms'] * 1e3:.2f} us "
+          f"plain {rec['plain_ms'] * 1e3:.2f} us{lib_txt} bound {rec['bound_ms'] * 1e3:.3f} us "
+          f"({rec['bound_by']}) (rtol {rtol})")
+    return rec
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the same card inputs."""
     import torch
@@ -204,52 +339,69 @@ def phase_kernels(dev):
     from isvins_tpu_torch.solver.proj_fast import eval_proj_rows
 
     inp = kernel_inputs(dev)
-    H, b, W, h, bl, lam, n_pose = inp["linstep"]
-    D = H.shape[0]
-    # (kernel, plain, args, rtol, atol(ref)) — the reference kernel tests'
+    D = inp["linstep"][0].shape[0]
+    tup = lambda f: (lambda *a: (f(*a),))
+    # (kernel, plain, rtol, atol(ref)) — the reference kernel tests'
     # tolerances (tests/test_pallas_ops.py)
     cases = {
-        "proj_rows": (ops.proj_rows, eval_proj_rows, inp["proj_rows"],
-                      3e-4, lambda r: 1e-4),
-        "imu_rows": (ops.imu_rows, ops.imu_rows_ref, inp["imu_rows"],
+        "proj_rows": (ops.proj_rows, eval_proj_rows, 3e-4, lambda r: 1e-4),
+        "imu_rows": (ops.imu_rows, ops.imu_rows_ref,
                      1e-5, lambda r: 2e-6 * float(r.abs().max())),
-        "schur_corr": (ops.schur_corr, ops.schur_corr_ref, inp["schur_corr"],
-                       2e-5, lambda r: 2e-3),
-        "linstep": (lambda *a: ops.linstep(*a),
-                    lambda *a: ops.linstep_ref(*a, D),
-                    inp["linstep"], 2e-3, lambda r: 2e-3 * float(r.abs().max())),
+        "schur_corr": (ops.schur_corr, ops.schur_corr_ref, 2e-5, lambda r: 2e-3),
+        "linstep": (ops.linstep, lambda *a: ops.linstep_ref(*a, D),
+                    2e-3, lambda r: 2e-3 * float(r.abs().max())),
+        # the batched step's bound (tests/test_pallas_ops.py:176-184)
+        "chol_solve_batched": (tup(ops.chol_solve_batched), tup(ops.chol_solve_batched_ref),
+                               2e-3, lambda r: 2e-3 * float(r.abs().max())),
         # K6 is integer work up to one IEEE division: exact
-        "retrieval_scores": (lambda *a: (ops.retrieval_scores(*a),),
-                             lambda *a: (ops.retrieval_scores_ref(*a),),
-                             inp["retrieval_scores"], 0.0, lambda r: 0.0),
+        "retrieval_scores": (tup(ops.retrieval_scores), tup(ops.retrieval_scores_ref),
+                             0.0, lambda r: 0.0),
+        "schur_reduce": (ops.schur_reduce, ops.schur_reduce_ref, 2e-5, lambda r: 2e-3),
     }
-    records = {}
-    for name, (kern, plain, args, rtol, atol_fn) in cases.items():
-        out = kern(*args)
-        torch.cuda.synchronize()
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        _assert_close(name, out, ref, rtol, atol_fn)
-        err = _max_err(out, ref)
-        ms = cuda_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        print(f"[kernels] {name}: max_abs_err={err:.3g} kernel {ms * 1e3:.2f} us "
-              f"plain {plain_ms * 1e3:.2f} us (rtol {rtol})")
+    records = {name: _measure(name, *case[:2], inp[name], *case[2:])
+               for name, case in cases.items()}
+    # K5 (above at the multiseq path's batch of bare windows) also at the
+    # coordinated estimators' batch and at 1, 8 and 32; a system that is not
+    # SPD gives a NaN row and leaves the others alone
+    for NB in sorted({1, len(MULTISEQ_SEEDS), 8, 32} - {MULTISEQ_NB}):
+        print(f"[kernels] chol_solve_batched NB={NB}:")
+        _measure("chol_solve_batched", *cases["chol_solve_batched"][:2], chol_inputs(dev, NB),
+                 *cases["chol_solve_batched"][2:])
+    H, b = (a.clone() for a in chol_inputs(dev, 8))
+    good = ops.chol_solve_batched(H, b)
+    H[3, 40, 40] = -1.0
+    x = ops.chol_solve_batched(H, b)
+    torch.cuda.synchronize()
+    keep = [n for n in range(8) if n != 3]
+    if not bool(torch.isnan(x[3]).all()) or not torch.equal(x[keep], good[keep]):
+        raise AssertionError("chol_solve_batched: a non-SPD system must give one NaN row")
+    # K1 and K2 at the batched paths' flattened rows: the coordinated
+    # estimators' sequences and the bare windows', each sequence with its own
+    # extrinsic and gravity
+    n1 = inp["proj_rows"][0].shape[0]
+    plain1 = lambda *a: eval_proj_rows(*a[:6], a[6].repeat_interleave(n1, 0),
+                                       a[7].repeat_interleave(n1, 0), *a[8:])
+    for S in (len(MULTISEQ_SEEDS), MULTISEQ_NB):
+        per_seq = lambda t, step: (t.reshape(S, -1)
+                                   + step * torch.arange(S, device=dev)[:, None])
+        a1 = [t.repeat((S,) + (1,) * (t.dim() - 1)) for t in inp["proj_rows"]]
+        a1[6], a1[7] = per_seq(a1[6], 0.001), per_seq(a1[7], 0.001)
+        print(f"[kernels] proj_rows, {S} sequences x {n1} rows:")
+        _measure("proj_rows", ops.proj_rows, plain1, a1, *cases["proj_rows"][2:], plain_reps=20)
+        a2 = [t.repeat((S,) + (1,) * (t.dim() - 1)) for t in inp["imu_rows"]]
+        a2[-1] = per_seq(a2[-1], 0.01)
+        print(f"[kernels] imu_rows, {S} sequences x {inp['imu_rows'][0].shape[0]} factors:")
+        _measure("imu_rows", ops.imu_rows, ops.imu_rows_ref, a2, *cases["imu_rows"][2:])
     # K6 (above at K = 23) also at one keyframe (the path's first query, a
     # one-block grid), the slice's capacity and the default one
     # (PoseGraphConfig.max_keyframes)
     for K in (1, 256, 4096):
         args = retrieval_inputs(dev, K)
-        out, ref = ops.retrieval_scores(*args), ops.retrieval_scores_ref(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref) or (K >= 18 and not float(ref[3]) > 0.9):
-            raise AssertionError(f"retrieval_scores at K={K}: max abs err "
-                                 f"{float((out - ref).abs().max()):.3g}")
-        ms = cuda_ms(lambda: ops.retrieval_scores(*args))
-        plain_ms = cuda_ms(lambda: ops.retrieval_scores_ref(*args), reps=20)
-        print(f"[kernels] retrieval_scores K={K}: max_abs_err=0 kernel {ms * 1e3:.2f} us "
-              f"plain {plain_ms * 1e3:.2f} us (exact)")
+        print(f"[kernels] retrieval_scores K={K}:")
+        _measure("retrieval_scores", *cases["retrieval_scores"][:2], args, 0.0, lambda r: 0.0,
+                 plain_reps=20)
+        if K >= 18 and not float(ops.retrieval_scores_ref(*args)[3]) > 0.9:
+            raise AssertionError(f"retrieval_scores at K={K}: planted duplicate not found")
     return records
 
 
@@ -278,8 +430,8 @@ def phase_solve(dev):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     it = info["iterations"]
-    expect = {"proj_rows": it + 1, "imu_rows": it + 1, "schur_corr": it, "linstep": it,
-              "retrieval_scores": 0}
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=it + 1, imu_rows=it + 1, schur_corr=it, linstep=it)
     print(f"[solve] iterations={it} cost={float(cost):.6g} launches={counts} expected={expect}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -392,13 +544,6 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
         raise AssertionError(f"est_ate_vio_m={ate} >= 0.05")
     return counts, {"est_steady_median_ms": float(np.median(steady_ms)),
                     "est_ate_vio_m": ate, "steady_frames": len(steady_ms)}
-
-
-def _sync(dev):
-    import torch
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
 
 
 def posegraph_config():
@@ -679,6 +824,333 @@ def _replay_last_solve(db, last):
     return {"pg_opt_max_dt_m": dt, "pg_opt_max_dq": dq, "pg_opt_cov_rel_err": dcov}
 
 
+def phase_reduce(dev):
+    """K7's own path (it has no caller in the package, as its TPU kernel has
+    none): one LM linear step of a product window taken unfused in the full
+    layout. schur_reduce (K7) eliminates the landmarks from the window's
+    normal equations, with W widened from the reduced layout [pose | ex] to
+    the D columns; the damped system is solved by chol_solve_batched (K5,
+    NB = 1); the step must equal the fused K4 step on the same inputs within
+    K4's tolerance (2e-3 of the largest entry, rtol 2e-3)."""
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.parallel import make_batch_problem
+    from isvins_tpu_torch.solver import WindowDims, build_normal_equations
+
+    dims = WindowDims(18, 8, 1000, 3072)
+    prob = make_batch_problem(1, dims, torch.float32, device=dev)
+    args = [_squeeze(x) for x in prob[:4]] + list(prob[4:])
+    H, b, h, W, b_l, _ = build_normal_equations(*args, dims)
+    n_pose, D = 6 * dims.B, dims.D
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    W_full = torch.zeros((dims.F, D), dtype=torch.float32, device=dev)
+    W_full[:, :n_pose] = W[:, :n_pose]
+    W_full[:, 15 * dims.B:] = W[:, n_pose:]
+    ops.reset_launch_counts()  # just before the path
+    H_s, b_s = ops.schur_reduce(H, b, W_full, h * (1.0 + lam), b_l)
+    d = torch.diagonal(H_s)  # a view: damping and jitter in place, as linstep_ref
+    d += lam * torch.clamp(torch.diagonal(H), min=1e-8)
+    d += 1e-12 * d.sum() / D
+    dx = ops.chol_solve_batched(H_s[None], b_s[None])[0]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()  # just after the path
+    dx_ref, _ = ops.linstep(H, b, W, h, b_l, lam, n_pose)
+    _assert_close("reduce step", (dx,), (dx_ref,), 2e-3, lambda r: 2e-3 * float(r.abs().max()))
+    print(f"[reduce] K7 + K5 step against the fused K4 step: max_abs_err="
+          f"{_max_err((dx,), (dx_ref,)):.3g} (max |dx| {float(dx_ref.abs().max()):.3g}) "
+          f"launches={counts}")
+    if counts["schur_reduce"] != 1 or counts["chol_solve_batched"] != 1:
+        raise AssertionError(f"the reduce path did not launch K7 and K5 once: {counts}")
+    return counts
+
+
+def _sync(dev):
+    import torch
+
+    torch.cuda.synchronize(dev)
+
+
+def _median_s(fn, reps, dev):
+    """Median host-clock seconds of fn() ending in a synchronize."""
+    import numpy as np
+
+    times = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+EARLY_TOL, EARLY_COST_RTOL = 2e-4, 1e-3
+
+
+def _early_agreement(dev, dims, trees, G, psi, row):
+    """Batched against single, sequence by sequence, in f32 on the card,
+    BEFORE the two paths part ways: after 1, 2 and 3 LM iterations. Held for
+    every sequence: the frame states (P in m, Q, V in m/s, Ba, Bg, and the
+    extrinsic) within EARLY_TOL at each of the three, the inverse depths
+    within EARLY_TOL after the first, the cost within EARLY_COST_RTOL
+    relative. From the second iteration on the inverse depths of weakly
+    observed landmarks cannot be held: two runs of the SAME single solves
+    differ there by ~0.02 (index_add_ sums in an order that changes), so
+    that gap is printed beside the single solves' own rerun gap."""
+    import torch
+
+    from isvins_tpu_torch.parallel import sharded_batch_solve
+    from isvins_tpu_torch.solver import solve_window
+
+    NB = trees[0].P.shape[0]
+    rec, bad = {}, []
+    for k in (1, 2, 3):
+        st, cost = sharded_batch_solve([dev], dims, iters=k)[0](*trees, G, psi)
+        runs = [[solve_window(*row(trees, n), G, psi, dims, iters=k) for n in range(NB)]
+                for _ in range(2)]
+        solo, again = ([torch.stack(leaf) for leaf in zip(*(s for s, _ in r))] for r in runs)
+        per_seq = lambda x, y: (x - y).abs().reshape(NB, -1).amax(dim=1)
+        gaps = {f: per_seq(x, y) for f, x, y in zip(st._fields, st, solo)}
+        rerun = {f: per_seq(z, y) for f, z, y in zip(st._fields, again, solo)}
+        frames = torch.stack([g for f, g in gaps.items() if f != "dep"]).amax(dim=0)
+        c_solo = torch.stack([c for _, c in runs[0]])
+        c_rel = float(((cost - c_solo).abs() / c_solo).max())
+        print(f"[multiseq] after {k} LM iteration(s), batched f32 vs single f32, largest gap "
+              f"of any sequence: frame states {float(frames.max()):.3g} (sequence "
+              f"{int(frames.argmax())}; median over sequences {float(frames.median()):.3g}), "
+              f"inverse depths {float(gaps['dep'].max()):.3g}, rel cost {c_rel:.3g}; per leaf, "
+              "beside the gap between two runs of the single solves: " + ", ".join(
+                  f"{f} {float(gaps[f].max()):.2g}|{float(rerun[f].max()):.2g}" for f in gaps))
+        rec.update({f"multiseq_early{k}_frame_state_gap": float(frames.max()),
+                    f"multiseq_early{k}_dep_gap": float(gaps["dep"].max()),
+                    f"multiseq_early{k}_dep_single_rerun_gap": float(rerun["dep"].max()),
+                    f"multiseq_early{k}_rel_cost_gap": c_rel})
+        if not (float(frames.max()) <= EARLY_TOL and c_rel <= EARLY_COST_RTOL
+                and (k > 1 or float(gaps["dep"].max()) <= EARLY_TOL)):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"after {bad} LM iteration(s) a sequence of the batched solve is "
+                             f"further than {EARLY_TOL} from its single solve")
+    return rec
+
+
+def phase_multiseq_solve(dev, solve_fps, chol_ms):
+    """(a) MULTISEQ_NB product windows as one batched program (K1, K2, K5)
+    against the same windows solved one by one (K1-K4)."""
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.parallel import make_batch_problem, sharded_batch_solve
+    from isvins_tpu_torch.solver import WindowDims, solve_window
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    dims, NB = WindowDims(18, 8, 1000, 3072), MULTISEQ_NB
+    step, shard = sharded_batch_solve([dev], dims, iters=10)
+    prob = make_batch_problem(NB, dims, torch.float32, device=dev)
+    trees, G, psi = shard(prob[:4]), prob[4], prob[5]
+    step(*trees, G, psi)  # warm-up
+    ops.reset_launch_counts()  # just before the main path
+    info = {}
+    st, cost = step(*trees, G, psi, info=info)
+    _sync(dev)
+    counts = ops.launch_counts()  # just after the main path
+    it = info["iterations"]
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=it + 1, imu_rows=it + 1, chol_solve_batched=it)
+    print(f"[multiseq] NB={NB} dims={tuple(dims)} iterations={it} launches={counts} "
+          f"expected={expect}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    if not all(bool(torch.isfinite(a).all()) for a in st) or not bool(torch.isfinite(cost).all()):
+        raise AssertionError("non-finite batched solve output")
+    row = lambda ts_, k: [tree_map(lambda a: a[k].contiguous(), t) for t in ts_]
+    out = {"multiseq_iterations": it, **_early_agreement(dev, dims, trees, G, psi, row)}
+    # the same problems one by one through solve_window (K4 inside), and
+    # both ways again in f64 (plain versions, on the same device). The bench
+    # problem is weakly constrained along some pose directions, so after 10
+    # unconverged iterations two f32 paths with different summation orders
+    # sit at different points of one valley (their agreement sequence by
+    # sequence is held above, before they part); what can be held tightly
+    # here is (1) in f64 the batched rows ARE the single solves (cost 1e-9,
+    # P 1e-6), and (2) the batched f32 solve is as close to the f64 answer as the
+    # single f32 solves are: within 3x their gap, in cost (the largest of
+    # the sequences) and in position (the median over the sequences of each
+    # one's largest |dP|: the largest of 16 moved 0.05-0.18 m between runs
+    # of the same code, since index_add_ sums in an order that changes).
+    f64 = lambda t: tree_map(lambda a: a.double() if a.is_floating_point() else a, t)
+    trees64, G64, psi64 = f64(trees), G.double(), psi.double()
+    solo = [solve_window(*row(trees, k), G, psi, dims, iters=10) for k in range(NB)]
+    solo64 = [solve_window(*row(trees64, k), G64, psi64, dims, iters=10) for k in range(NB)]
+    st64, cost64 = step(*trees64, G64, psi64)
+    init_cost = torch.stack([solve_window(*row(trees, k), G, psi, dims, iters=0)[1]
+                             for k in range(NB)])
+    ref_cost = torch.stack([c for _, c in solo64])
+    ref_P = torch.stack([s.P for s, _ in solo64])
+    rel = lambda c: float(((c.double() - ref_cost).abs() / ref_cost).max())
+    gaps = lambda P: (P.double() - ref_P).abs().amax(dim=(1, 2))  # per sequence
+    gap, mid = (lambda P: float(gaps(P).max())), (lambda P: float(gaps(P).median()))
+    solo_P = torch.stack([s.P for s, _ in solo])
+    rel64, dP64 = rel(cost64), gap(st64.P)
+    own_rel, own_dP, own_mid = rel(torch.stack([c for _, c in solo])), gap(solo_P), mid(solo_P)
+    b_rel, b_dP, b_mid = rel(cost), gap(st.P), mid(st.P)
+    print(f"[multiseq] f64 batched vs f64 one by one: max rel cost diff={rel64:.3g} "
+          f"max|dP|={dP64:.3g} m")
+    print(f"[multiseq] against the f64 single solves: batched f32 rel cost diff={b_rel:.3g} "
+          f"max|dP|={b_dP:.3g} m (median over sequences {b_mid:.3g}); single f32 solves rel "
+          f"cost diff={own_rel:.3g} max|dP|={own_dP:.3g} m (median {own_mid:.3g}); cost "
+          f"{float(init_cost.mean()):.6g} -> {float(cost.mean()):.6g} (mean of {NB})")
+    if not (rel64 < 1e-9 and dP64 < 1e-6):
+        raise AssertionError(f"f64: batched rows are not the single solves: {rel64}, {dP64}")
+    if not (b_rel <= 3 * own_rel + 1e-6 and b_mid <= 3 * own_mid + 1e-6
+            and bool((cost < init_cost).all())):
+        raise AssertionError(f"f32 batched solve is further from the f64 answer than the "
+                             f"single f32 solves: {b_rel} vs {own_rel}, {b_mid} vs {own_mid}")
+    out.update({"multiseq_f64_rel_cost_diff": rel64,
+           "multiseq_f32_rel_cost_diff": b_rel, "multiseq_f32_max_dP_m": b_dP,
+           "multiseq_f32_median_dP_m": b_mid,
+           "multiseq_single_f32_rel_cost_diff": own_rel, "multiseq_single_f32_max_dP_m": own_dP,
+           "multiseq_single_f32_median_dP_m": own_mid})
+    for nb in (8, 16, 32):
+        p = make_batch_problem(nb, dims, torch.float32, device=dev)
+        t, g, ps = shard(p[:4]), p[4], p[5]
+        step(*t, g, ps)
+        med = _median_s(lambda: step(*t, g, ps), 10, dev)
+        out[f"batched_x{nb}_throughput"] = nb / med
+        print(f"[multiseq] batched_x{nb}_throughput={nb / med:.2f} frames/s (median "
+              f"{med * 1e3:.3f} ms over 10 batched solves) beside "
+              f"vio_window_solve_frames_per_s={solve_fps:.2f}")
+    med_nb = NB / out[f"batched_x{NB}_throughput"]
+    out["chol_share_of_batched_iteration"] = chol_ms * 1e-3 * it / med_nb
+    print(f"[multiseq] K5 at NB={NB}: {chol_ms * 1e3:.2f} us x {it} iterations = "
+          f"{out['chol_share_of_batched_iteration'] * 100:.2f} % of the batched solve")
+    return counts, out
+
+
+def phase_multiseq_estimators(dev, n_frames=40, n_landmarks=1800, seeds=MULTISEQ_SEEDS):
+    """(b) four Estimators at the EuRoC window on four seeded worlds, their
+    steady solves deferred to MultiSequenceSolver (one batched solve per
+    frame through K1, K2, K5), against the same four run alone (the
+    synchronous estimator, K1-K4)."""
+    import numpy as np
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.config import euroc_config
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.parallel import MultiSequenceSolver
+    from isvins_tpu_torch.utils import perf
+    from isvins_tpu_torch.utils.synthetic import make_world, project
+
+    ric = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+    cfg = euroc_config().replace(tic=(0.02, -0.01, 0.01), ric=ric)
+    tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(np.asarray(ric))
+    worlds = [make_world(n_frames=n_frames, n_landmarks=n_landmarks, seed=s) for s in seeds]
+
+    def make(world, **kw):
+        est = Estimator(cfg, device=dev, **kw)
+
+        def gt_init(e):
+            e.set_ground_truth_init(world.P, world.Q, world.V)
+            e.f_manager.depth[:] = -1.0
+
+        est._gt_init = gt_init
+        return est
+
+    def feed(est, world, k):
+        if k > 0:
+            for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                est.process_imu(world.imu_dts[k - 1][s], world.imu_accs[k - 1][s],
+                                world.imu_gyrs[k - 1][s])
+        pts, _, vis = project(world, k, tic, qic)
+        return est.process_image(np.where(vis)[0], pts[vis], world.frame_times[k])
+
+    def drive(ests, coord):
+        """Positions of the newest frame after every steady frame, per
+        estimator; the batch sizes step() returned; seconds per steady frame."""
+        pos, sizes, secs = [[] for _ in ests], [], []
+        for k in range(n_frames):
+            steady = all(e.solver_flag == NON_LINEAR for e in ests)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for e, w in zip(ests, worlds):
+                feed(e, w, k)
+            if coord is not None:
+                n = coord.step(ests)
+                if steady:
+                    sizes.append(n)
+            _sync(dev)
+            if steady:
+                secs.append(time.perf_counter() - t0)
+            for e, p in zip(ests, pos):
+                if e.solver_flag == NON_LINEAR:
+                    p.append((k, e.latest_pose()[1].copy()))
+        for e in ests:
+            e.close()
+        return pos, sizes, secs
+
+    alone = [make(w) for w in worlds]
+    pos_a, _, secs_a = drive(alone, None)
+    ests = [make(w, solve_async=True) for w in worlds]
+    for e in ests:
+        e._defer_dispatch = True
+    coord = MultiSequenceSolver([dev])
+    # the launch counts of the coordinated drive's steady frames: set to 0
+    # when the last estimator has initialized (the init frame solves alone)
+    real_step, at_steady = coord.step, {}
+
+    def counted_step(es):
+        if not at_steady and all(e._solve_pending is not None for e in es):
+            ops.reset_launch_counts()  # just before the main path
+            at_steady["k"] = True
+        return real_step(es)
+
+    coord.step = counted_step
+    perf.reset()
+    perf.enable(True)
+    try:
+        pos_b, sizes, secs_b = drive(ests, coord)
+    finally:
+        perf.enable(False)
+    counts = ops.launch_counts()  # just after the main path
+    stats = perf.stats()
+    for name in ("mseq.batched_solve", "est.solve_collect", "est.marg_collect", "est.build_proj",
+                 "est.mark_outliers", "est.marginalize"):
+        st = stats.get(name, {})
+        print(f"[multiseq] {name}: n={st.get('count', 0)} median_ms={st.get('median_ms')} "
+              f"max_ms={st.get('max_ms')} total_ms={st.get('total_ms')}")
+    ates, gaps = [], []
+    for w, pa, pb in zip(worlds, pos_a, pos_b):
+        if [k for k, _ in pa] != [k for k, _ in pb]:
+            raise AssertionError("the coordinated and the solo estimators solved other frames")
+        ates.append(float(np.sqrt(np.mean([np.sum((p - w.P[k]) ** 2) for k, p in pb]))))
+        gaps.append(max(float(np.linalg.norm(p - q)) for (_, p), (_, q) in zip(pa, pb)))
+    print(f"[multiseq] estimators: {len(ests)} worlds seeds={seeds} frames={n_frames} steady "
+          f"frames={len(sizes)} step() sizes={sorted(set(sizes))} launches on the steady "
+          f"frames={counts}")
+    print(f"[multiseq] estimators: est_ate_vio_m per sequence={[round(a, 6) for a in ates]} "
+          f"max gap to the solo runs={max(gaps):.3g} m; per steady frame of all sequences: "
+          f"coordinated median {float(np.median(secs_b)) * 1e3:.3f} ms, solo median "
+          f"{float(np.median(secs_a)) * 1e3:.3f} ms")
+    if len(sizes) < 15 or set(sizes) != {len(ests)}:
+        raise AssertionError(f"step() did not batch all four on every steady frame: {sizes}")
+    if any(e.failure_count for e in ests + alone):
+        raise AssertionError("an estimator failed")
+    if not all(counts[k] > 0 for k in ops.BATCHED_SOLVE_KERNELS):
+        raise AssertionError(f"a kernel of the batched path never launched: {counts}")
+    if counts["linstep"] or counts["schur_corr"]:
+        raise AssertionError(f"the coordinated steady frames launched K3/K4: {counts}")
+    # noiseless worlds, ground-truth init: 5 cm each (PERF.md section 2);
+    # coordinated against solo within 5 mm, the bound test_torch_estimator
+    # holds two f32 runs of one drive to (summation order, fed back over the
+    # drive's frames)
+    if not all(a < 0.05 for a in ates) or not max(gaps) < 5e-3:
+        raise AssertionError(f"ates {ates}, gap {max(gaps)}")
+    return counts, {"multiseq_est_ate_vio_m_max": max(ates), "multiseq_est_gap_m": max(gaps),
+                    "multiseq_est_frame_median_ms": float(np.median(secs_b)) * 1e3,
+                    "multiseq_solo_frame_median_ms": float(np.median(secs_a)) * 1e3}
+
+
 def main():
     import torch
 
@@ -688,7 +1160,17 @@ def main():
     solve = phase_solve(dev)
     _, sl = phase_slice(dev)
     counts, pg = phase_posegraph(dev)
-    print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg}))
+    ms_counts, ms = phase_multiseq_solve(dev, solve["vio_window_solve_frames_per_s"],
+                                         records["chol_solve_batched"]["ms"])
+    est_counts, ms_est = phase_multiseq_estimators(dev)
+    red_counts = phase_reduce(dev)
+    # K5's launches are the multiseq path's (both halves), K7's its own
+    # path's, the others' the posegraph path's
+    counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
+                                    + est_counts["chol_solve_batched"])
+    counts["schur_reduce"] = red_counts["schur_reduce"]
+    print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
+                      "multiseq": {**ms, **ms_est}}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],

@@ -9,9 +9,10 @@
 // [pose_i(6) | vb_i(9) | pose_j(6) | vb_j(9)]. Whitening stays outside.
 //
 // What bounds it on the H100: launch latency. The window has n = B-1 = 17
-// factors, ~1.5k flops and 2 KB of output each, so the whole call is a few
-// microseconds of one SM's time. Design: one thread per factor, all factors
-// in ONE block (n <= 1024), nothing shared between threads. The 465
+// factors (S * 17 when S sequences are evaluated in one launch), ~1.5k
+// flops and 2 KB of output each, so the whole call is a few microseconds.
+// Design: one thread per factor, a warp per block so that a batch spreads
+// over the SMs, nothing shared between threads. The 465
 // outputs of a factor are written straight to global memory as they are
 // formed (the 15x30 block is zero-filled first, then its non-zero 3x3
 // blocks are stored) so the thread never holds them in registers; the
@@ -113,9 +114,13 @@ __global__ void imu_rows_kernel(const float* __restrict__ Pi_, const float* __re
                                 const float* __restrict__ dV_, const float* __restrict__ sdt_,
                                 const float* __restrict__ ba0_, const float* __restrict__ bg0_,
                                 const float* __restrict__ jac, const float* __restrict__ G_,
-                                float* __restrict__ r, float* __restrict__ Jcat, int n) {
-  int k = threadIdx.x;
+                                float* __restrict__ r, float* __restrict__ Jcat, int n,
+                                int rows_per_seq) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
+  // the factors are S = n / rows_per_seq sequences laid end to end, each
+  // with its own gravity vector (S = 1: one window)
+  G_ += 3 * (k / rows_per_seq);
   V3 Pi = ld3(Pi_, k), Vi = ld3(Vi_, k), Bai = ld3(Bai_, k), Bgi = ld3(Bgi_, k);
   V3 Pj = ld3(Pj_, k), Vj = ld3(Vj_, k), Baj = ld3(Baj_, k), Bgj = ld3(Bgj_, k);
   Q4 Qi = ld4(Qi_, k), Qj = ld4(Qj_, k), dQ = ld4(dQ_, k);
@@ -204,10 +209,11 @@ ISV_EXPORT int isv_imu_rows(const float* Pi, const float* Qi, const float* Vi, c
                             const float* Baj, const float* Bgj, const float* dP, const float* dQ,
                             const float* dV, const float* sum_dt, const float* ba0,
                             const float* bg0, const float* jac, const float* G, float* r,
-                            float* Jcat, int n, void* stream) {
-  const int threads = ((n + 31) / 32) * 32;
-  imu_rows_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(Pi, Qi, Vi, Bai, Bgi, Pj, Qj, Vj,
-                                                           Baj, Bgj, dP, dQ, dV, sum_dt, ba0,
-                                                           bg0, jac, G, r, Jcat, n);
+                            float* Jcat, int n, int rows_per_seq, void* stream) {
+  const int threads = 32;
+  const int blocks = (n + threads - 1) / threads;
+  imu_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      Pi, Qi, Vi, Bai, Bgi, Pj, Qj, Vj, Baj, Bgj, dP, dQ, dV, sum_dt, ba0, bg0, jac, G, r, Jcat,
+      n, rows_per_seq);
   return (int)cudaGetLastError();
 }

@@ -22,27 +22,16 @@
 // jnp.linalg.cholesky does, so the LM accept test rejects the step.
 //
 // What bounds it on the H100: the factorization's sequential chain, not
-// flops or bytes (~7 MFLOP, 0.3 MB of H). A 276x276 f32 matrix (304,704 B)
-// does not fit a block's 232,448 B of shared memory, so the block keeps the
-// PACKED LOWER TRIANGLE (276*277/2*4 = 152,904 B) in dynamic shared memory,
-// beside three D-vectors; every step of the right-looking Cholesky then
-// touches only shared memory: per column one scaling pass and one rank-1
-// trailing update spread over 32 warps (a warp per row, lanes along the
-// row, which is contiguous in packed storage), two block barriers per
-// column. The triangular solves run in one warp: forward substitution as a
-// row dot product with a shuffle reduction, back substitution right-looking
-// along the rows of L, so both read contiguous packed rows.
-#include <math.h>
-
-#include "common.cuh"
+// flops or bytes (~7 MFLOP, 0.3 MB of H). The block keeps the packed lower
+// triangle in dynamic shared memory and runs the factorization and the two
+// triangular solves of chol.cuh, which K5 (chol_batched.cu) shares.
+#include "chol.cuh"
 
 __device__ __forceinline__ int reduced_index(int i, int n_pose, int ex0) {
   if (i < n_pose) return i;
   if (i >= ex0) return n_pose + (i - ex0);
   return -1;
 }
-
-__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
 __global__ void __launch_bounds__(1024)
     linstep_chol_kernel(const float* __restrict__ H, const float* __restrict__ b,
@@ -103,50 +92,8 @@ __global__ void __launch_bounds__(1024)
   }
   __syncthreads();
 
-  // right-looking Cholesky, column by column
-  for (int j = 0; j < D; ++j) {
-    const float d = A[tri(j) + j];
-    if (!(d > 0.0f)) {  // every thread reads the same value: uniform exit
-      if (tid == 0) bad = 1;
-      break;
-    }
-    const float ljj = sqrtf(d);
-    for (int i = j + 1 + tid; i < D; i += nt) {
-      const float l = A[tri(i) + j] / ljj;
-      A[tri(i) + j] = l;
-      col[i] = l;
-    }
-    if (tid == 0) ldiag[j] = ljj;
-    __syncthreads();
-    for (int i = j + 1 + warp; i < D; i += nw) {
-      const float ci = col[i];
-      float* Ai = A + tri(i);
-      for (int k = j + 1 + lane; k <= i; k += 32) Ai[k] -= ci * col[k];
-    }
-    __syncthreads();
-  }
-  __syncthreads();
-
-  if (!bad && warp == 0) {
-    // forward: L y = b_s, one row dot product per step
-    for (int j = 0; j < D; ++j) {
-      const float* Lj = A + tri(j);
-      float s = 0.0f;
-      for (int k = lane; k < j; k += 32) s += Lj[k] * vec[k];
-      s = warp_sum(s);
-      if (lane == 0) vec[j] = (vec[j] - s) / ldiag[j];
-      __syncwarp();
-    }
-    // back: L^T x = y, right-looking along the rows of L
-    for (int j = D - 1; j >= 0; --j) {
-      const float xj = vec[j] / ldiag[j];
-      __syncwarp();
-      if (lane == 0) vec[j] = xj;
-      const float* Lj = A + tri(j);
-      for (int k = lane; k < j; k += 32) vec[k] -= Lj[k] * xj;
-      __syncwarp();
-    }
-  }
+  chol_factor_packed(A, col, ldiag, &bad, D);
+  if (!bad && warp == 0) chol_solve_packed(A, ldiag, vec, D);
   __syncthreads();
   for (int i = tid; i < D; i += nt) dx[i] = bad ? nanf("") : vec[i];
 }
@@ -173,16 +120,12 @@ __global__ void linstep_dl_kernel(const float* __restrict__ W, const float* __re
   }
 }
 
-ISV_EXPORT int isv_linstep_smem_bytes(int D) {
-  return (D * (D + 1) / 2 + 3 * D) * (int)sizeof(float);
-}
-
 // (ii) + (iii); the caller launches (i) K3 first on the same stream.
 ISV_EXPORT int isv_linstep_solve(const float* H, const float* b, const float* C, const float* cb,
                                  const float* W, const float* h, const float* bl,
                                  const float* lam, float* dx, float* dl, int D, int F, int Dr,
                                  int n_pose, void* stream) {
-  const int smem = isv_linstep_smem_bytes(D);
+  const int smem = chol_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       linstep_chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

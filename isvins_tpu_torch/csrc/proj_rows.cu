@@ -31,9 +31,13 @@ __global__ void proj_rows_kernel(const float* __restrict__ pts_i,
                                  const unsigned char* __restrict__ valid,
                                  float* __restrict__ r, float* __restrict__ J_pi,
                                  float* __restrict__ J_pj, float* __restrict__ J_dep,
-                                 int n) {
+                                 int n, int rows_per_seq) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
+  // the rows are S = n / rows_per_seq sequences laid end to end, each with
+  // its own extrinsic (S = 1: one window)
+  tic += 3 * (t / rows_per_seq);
+  qic += 4 * (t / rows_per_seq);
 
   float dv = dep[t];
   float d = (valid[t] != 0 && fabsf(dv) > 1e-8f) ? dv : 1.0f;
@@ -109,10 +113,12 @@ ISV_EXPORT int isv_proj_rows(const float* pts_i, const float* pts_j, const float
                              const float* Qi, const float* Pj, const float* Qj,
                              const float* tic, const float* qic, const float* dep,
                              const unsigned char* valid, float* r, float* J_pi,
-                             float* J_pj, float* J_dep, int n, void* stream) {
+                             float* J_pj, float* J_dep, int n, int rows_per_seq,
+                             void* stream) {
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   proj_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid, r, J_pi, J_pj, J_dep, n);
+      pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid, r, J_pi, J_pj, J_dep, n,
+      rows_per_seq);
   return (int)cudaGetLastError();
 }

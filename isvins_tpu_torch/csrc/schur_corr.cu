@@ -15,55 +15,17 @@
 //
 // What bounds it on the H100: latency. It is a skinny product (~13 MFLOP,
 // 0.46 MB of W that stays in L2), far below either roofline, so the design
-// is a plain shared-memory tiled product: 16x16 output tiles, F streamed
-// in chunks of 32 rows through shared memory (W / h_safe formed once per
-// staged element), 8x8 = 64 blocks. Each thread owns one output entry and
-// sums over F in a fixed order: no atomics, so results repeat run to run.
-#include "common.cuh"
-
-#define TS 16
-#define TF 32
-
-__device__ __forceinline__ float h_safe_at(const float* h, const float* lam, int f) {
-  float v = h[f];
-  if (lam != nullptr) {
-    v = v * (1.0f + *lam);
-    v = v > 1e-12f ? v : 1.0f;
-  }
-  return v;
-}
+// is the plain shared-memory tiled product of schur_tile.cuh (shared with
+// K7): 16x16 output tiles, F streamed in chunks of 32 rows through shared
+// memory (W / h_safe formed once per staged element), 8x8 = 64 blocks.
+#include "schur_tile.cuh"
 
 __global__ void schur_corr_kernel(const float* __restrict__ W, const float* __restrict__ h,
                                   const float* __restrict__ bl, const float* __restrict__ lam,
                                   float* __restrict__ C, float* __restrict__ cb, int F, int Dr) {
-  __shared__ float Wa[TF][TS + 1];
-  __shared__ float Wb[TF][TS + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TS + tx;
   const int a0 = blockIdx.y * TS, b0 = blockIdx.x * TS;
-  float acc = 0.0f;
-  for (int f0 = 0; f0 < F; f0 += TF) {
-    for (int idx = tid; idx < TF * TS; idx += TS * TS) {
-      const int ff = idx / TS, cc = idx % TS;
-      const int f = f0 + ff;
-      const int ca = a0 + cc, cbi = b0 + cc;
-      float va = 0.0f, vb = 0.0f;
-      if (f < F) {
-        if (ca < Dr) va = W[f * Dr + ca];
-        if (cbi <= Dr) {
-          const float num = cbi < Dr ? W[f * Dr + cbi] : bl[f];
-          vb = num / h_safe_at(h, lam, f);
-        }
-      }
-      Wa[ff][cc] = va;
-      Wb[ff][cc] = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ff = 0; ff < TF; ++ff) acc += Wa[ff][ty] * Wb[ff][tx];
-    __syncthreads();
-  }
-  const int a = a0 + ty, b = b0 + tx;
+  const float acc = schur_tile(W, bl, h, lam, false, F, Dr, a0, b0);
+  const int a = a0 + threadIdx.y, b = b0 + threadIdx.x;
   if (a < Dr) {
     if (b < Dr)
       C[a * Dr + b] = acc;

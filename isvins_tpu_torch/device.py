@@ -18,13 +18,16 @@ def set_precision() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` -> the current CUDA device when a card is present, else the
-    CPU. A CUDA request without a card raises (no silent CPU run)."""
+    """`None` -> the current CUDA device; the CPU only when the caller says
+    `device="cpu"`. Without a card, `None` and any CUDA request raise (no
+    silent CPU run)."""
     set_precision()
-    if device is None:
-        return torch.device("cuda", torch.cuda.current_device()) \
-            if torch.cuda.is_available() else torch.device("cpu")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} needs a CUDA card and none is available; "
+                'pass device="cpu" to run on the CPU')
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -11,8 +11,11 @@ runs on the estimator's device:
 - the init BA, the init scale scan, triangulation and marginalization in
   f64 on the same device (the H100 has native f64).
 
-Only the synchronous path is ported (`solve_async=False`); the cross-frame
-pipeline (dispatch_odometry/collect_solve) comes with the System port.
+`solve_async=True` pipelines the steady solve across frames
+(dispatch_odometry / collect_solve): the solve is launched on a side CUDA
+stream and installed at the start of the next frame; with `_defer_dispatch`
+set, the prepared arguments wait for parallel/multi_seq.MultiSequenceSolver,
+which solves several estimators' windows as one batch (K1, K2, K5).
 Deliberate improvements over the reference kept from the JAX package:
 preintegrations re-integrated at the current bias each solve, exact
 pseudo-measurement drags applied after the gauge re-anchoring, and the VB
@@ -41,9 +44,10 @@ from ..solver import (
     WindowDims,
     WindowState,
     solve_window,
+    solve_window_batched,
 )
 from ..utils import perf
-from ..utils.convert import from_numpy_tree, to_numpy_tree
+from ..utils.convert import from_numpy_tree, to_numpy_tree, tree_map
 from .feature_manager import FeatureManager
 from .marginalization import PoseGraphPacket, init_sparsify, marg_backward, marg_forward
 
@@ -74,32 +78,28 @@ def to_device(tree, device, dtype=None):
         return from_numpy_tree(tree, device, dtype)
 
     def pin(a):
-        t = torch.as_tensor(np.ascontiguousarray(np.asarray(a)))
+        a = np.asarray(a)
+        t = torch.as_tensor(np.ascontiguousarray(a)).reshape(a.shape)  # 0-d stays 0-d
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.pin_memory().to(device, non_blocking=True)
 
-    def conv(x):
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(conv(v) for v in x))
-        if isinstance(x, (tuple, list)):
-            return type(x)(conv(v) for v in x)
-        return pin(x)
-
-    return from_numpy_tree(conv(tree), device)
+    return from_numpy_tree(tree_map(pin, tree), device)
 
 
 def device_triangulate(st: WindowState, obs, has_obs, start):
     """Masked multi-view DLT depth seeding on the device, (F,) metric depths
     (garbage where a track has < 2 observations; the caller masks). The
     nullspace is the eigenvector of the smallest eigenvalue of the 4x4 Gram
-    matrix — f32-safe and batched over all tracks."""
+    matrix — f32-safe and batched over all tracks. Every argument may carry
+    the same leading sequence axes."""
     from .feature_manager import _dlt_systems
 
     A = _dlt_systems(obs, has_obs, start.long(), st.P, st.Q, st.tic, st.qic)
     _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
     v = V[..., :, 0]
-    return v[:, 2] / torch.where(v[:, 3].abs() > 1e-12, v[:, 3], torch.full_like(v[:, 3], 1e-12))
+    v3 = v[..., 3]
+    return v[..., 2] / torch.where(v3.abs() > 1e-12, v3, torch.full_like(v3, 1e-12))
 
 
 def steady_solve(st: WindowState, im_raw, tri, pr: ProjFactors, pri: PriorState, g, ps,
@@ -107,25 +107,100 @@ def steady_solve(st: WindowState, im_raw, tri, pr: ProjFactors, pri: PriorState,
                  max_depth: float):
     """The steady-state frame solve, all on the device: seed fresh landmark
     depths by masked DLT, preintegrate every segment at the in-state bias,
-    then run the window LM (JAX `_steady_solve`, estimator.py:603-619)."""
+    then run the window LM (JAX `_steady_solve`, estimator.py:603-619). With
+    a leading sequence axis on every leaf it is the batched solve of several
+    estimators' windows (solve_window_batched)."""
     obs, has_obs, start, need = tri
     d = device_triangulate(st, obs, has_obs, start)
     ok = torch.isfinite(d) & (d > 0.1)
     inv = 1.0 / torch.clamp(d, 0.1, max_depth)
     st = st._replace(dep=torch.where(need & ok, inv, st.dep))
     dts, accs, gyrs, a0, g0, valid = im_raw
-    pre = integrate_segment(dts, accs, gyrs, a0, g0, st.Ba[:-1], st.Bg[:-1], noise)
+    pre = integrate_segment(dts, accs, gyrs, a0, g0, st.Ba[..., :-1, :], st.Bg[..., :-1, :],
+                            noise)
     im = ImuFactors.create(pre=pre, valid=valid)
-    return solve_window(st, im, pr, pri, g, ps, dims, iters=iters,
-                        estimate_extrinsic=estimate_extrinsic)
+    solve = solve_window if st.P.dim() == 2 else solve_window_batched
+    return solve(st, im, pr, pri, g, ps, dims, iters=iters,
+                 estimate_extrinsic=estimate_extrinsic)
+
+
+class PendingSolve:
+    """A dispatched, not yet collected steady solve (one window, or a batch
+    with a leading sequence axis). On the card the solve ran on a stream of
+    its own and copied (state, cost) into pinned host buffers there;
+    `collect()` waits on that stream's event and returns them as f64 numpy
+    (the host state's type). `row(k)` is the same for sequence k of a
+    batch."""
+
+    def __init__(self, outputs, event=None):
+        self._outputs = outputs  # (WindowState, cost), host tensors
+        self._event = event
+        self._host = None
+
+    def collect(self):
+        if self._host is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._host = tree_map(lambda o: o.numpy().astype(np.float64), self._outputs)
+            self._outputs = None
+        return self._host
+
+    def row(self, k: int) -> "_PendingRow":
+        return _PendingRow(self, k)
+
+
+class _PendingRow:
+    def __init__(self, batch: PendingSolve, k: int):
+        self._batch = batch
+        self._k = k
+
+    def collect(self):
+        return tree_map(lambda a: a[self._k], self._batch.collect())
+
+
+def dispatch_steady(args, device, dims: WindowDims, iters: int, estimate_extrinsic: bool,
+                    noise: ImuNoise, max_depth: float) -> PendingSolve:
+    """Upload the host argument tree of steady_solve (as f32, the steady
+    path's type), run the solve and start the download of its outputs,
+    without waiting for them. On the card
+    all three go to a new stream from the calling thread (the kernel
+    launches take the thread's current stream), and every tensor of the solve
+    lives until the stream's event through that stream's allocator; on the
+    CPU the solve simply runs here."""
+    def run():
+        st, im_raw, tri, pr, pri, g, ps = to_device(args, device, torch.float32)
+        return steady_solve(st, im_raw, tri, pr, pri, g, ps, dims, iters, estimate_extrinsic,
+                            noise, max_depth)
+
+    if device.type != "cuda":
+        return PendingSolve(run())
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        outs = tree_map(
+            lambda o: torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
+                o, non_blocking=True), run())
+        event = torch.cuda.Event()
+        event.record(stream)
+    return PendingSolve(outs, event)
 
 
 class Estimator:
     def __init__(self, cfg: EngineConfig, dims: Optional[WindowDims] = None,
-                 device=None):
-        """`device`: where the numeric work runs (None: the CUDA card when
-        present, else the CPU)."""
+                 device=None, solve_async: bool = False):
+        """`device`: where the numeric work runs (None: the CUDA card; the
+        CPU only on `device="cpu"`).
+
+        `solve_async=True` pipelines the steady-state window solve across
+        frames: process_image DISPATCHES the device solve and returns; the
+        result is collected (state installed, priors dragged, marginalization
+        submitted, window slid) by collect_solve(), which the caller runs at
+        the START of the next frame, before its IMU feed. Outputs are
+        value-identical to the synchronous mode, delivered one frame later
+        (drain `ready_poses`). Setting `_defer_dispatch` on such an estimator
+        leaves the prepared solve to a MultiSequenceSolver."""
         self.cfg = cfg
+        self.solve_async = bool(solve_async)
+        self._defer_dispatch = False
         self.device = resolve_device(device)
         w = cfg.window
         self.dims = dims or WindowDims(B=w.all_size, Vo=w.vo_size, F=w.max_features, N=3072)
@@ -140,7 +215,7 @@ class Estimator:
         if self.estimate_extrinsic == 2:
             raise NotImplementedError(
                 "online extrinsic rotation calibration (initial/ex_rotation) is not "
-                "ported yet (ROADMAP, port queue item 3, 'SfM initialization')")
+                "ported yet (ROADMAP, queue A, 'SfM initialization')")
         self._marg_exec = None  # lazy ThreadPoolExecutor(1)
         self._marg_future = None
         self._marg_job_extra = None
@@ -158,6 +233,8 @@ class Estimator:
             self._marg_future.cancel()
             self._marg_future = None
             self._marg_job_extra = None
+        # an in-flight async solve is dropped the same way: never collected
+        self._solve_pending = None
         self.ready_poses: List[tuple] = []
         self.Ps = np.zeros((B, 3))
         self.Qs = np.tile(np.array([1.0, 0, 0, 0]), (B, 1))
@@ -195,6 +272,9 @@ class Estimator:
     def process_imu(self, dt: float, acc: np.ndarray, gyr: np.ndarray):
         """estimator.cpp:91–124: buffer the sample into the current frame
         segment and propagate the newest state as initial guess."""
+        if self._solve_pending is not None:
+            raise RuntimeError("collect_solve() before the next frame's IMU feed: the pending "
+                               "solve's state would overwrite this propagation")
         acc = np.asarray(acc)
         gyr = np.asarray(gyr)
         if self.first_imu:
@@ -270,18 +350,27 @@ class Estimator:
                     self.slide_window()
             else:
                 self.frame_count += 1
+        elif self.solve_async:
+            # cross-frame solve pipeline: dispatch now, install at the next
+            # frame's collect_solve() (before its IMU feed)
+            self.dispatch_odometry()
+            info["solved"] = True
         else:
             self.solve_odometry()
             if self.failure_detection():
                 info["failure"] = True
                 self.clear_state()
                 return info
-            self.slide_window()
-            self.f_manager.remove_failures()
+            self._finish_frame()
             info["solved"] = True
-            j = self.dims.B - 1
-            self.ready_poses.append((float(self.Headers[j]), self.Ps[j].copy(), self.Qs[j].copy()))
         return info
+
+    def _finish_frame(self):
+        """Slide the window after a steady solve and publish its newest pose."""
+        self.slide_window()
+        self.f_manager.remove_failures()
+        j = self.dims.B - 1
+        self.ready_poses.append((float(self.Headers[j]), self.Ps[j].copy(), self.Qs[j].copy()))
 
     # ----------------------------------------------------------- initialization
     def initial_structure(self) -> bool:
@@ -376,7 +465,12 @@ class Estimator:
                                            iters=iters, estimate_extrinsic=ee)
             new_state, cost = to_numpy_tree(new_state), float(cost)
 
-        new_state = self._reanchor(new_state, old_P[0], old_Q[0])
+        self._install_solution(new_state, cost, old_P[0], old_Q[0])
+        return pf
+
+    def _install_solution(self, new_state: WindowState, cost: float, P0_old, Q0_old):
+        """Re-anchor a solved window (host numpy tree) and make it the state."""
+        new_state = self._reanchor(new_state, P0_old, Q0_old)
         self.Ps = np.array(new_state.P, dtype=np.float64)
         self.Qs = np.array(new_state.Q, dtype=np.float64)
         self.Vs = np.array(new_state.V, dtype=np.float64)
@@ -387,7 +481,6 @@ class Estimator:
             self.qic = np.array(new_state.qic, dtype=np.float64)
         self.f_manager.set_depths(np.asarray(new_state.dep, dtype=np.float64))
         self.last_cost = cost
-        return pf
 
     def _tri_inputs(self):
         """Device-triangulation side inputs: per-track observations + the
@@ -490,6 +583,11 @@ class Estimator:
         sdt = torch.float32 if self.cfg.solver.solve_dtype == "float32" else None
         pf = self._solve_once(self.priors, self.cfg.solver.max_iterations, dtype=sdt)
 
+        self._after_solve(pf, (old_P, old_Q, old_V, old_Ba, old_Bg), G, psi,
+                          asynchronous=not first)
+
+    def _after_solve(self, pf, old, G, psi, asynchronous: bool):
+        """Outlier cull, prior drag and marginalization at the solved state."""
         with perf.phase("est.mark_outliers"):
             self.f_manager.mark_outliers(
                 self.Ps, self.Qs, self.tic, self.qic,
@@ -497,12 +595,76 @@ class Estimator:
                 thresh_px=self.cfg.solver.outlier_reproj_px,
             )
         with perf.phase("est.drag_priors"):
-            self._drag_priors(old_P, old_Q, old_V, old_Ba, old_Bg)
+            self._drag_priors(*old)
         if self.marginalization_flag == MARGIN_OLD:
             with perf.phase("est.marginalize"):
                 # async in steady state (collected at the next solve); the
                 # first post-init marg stays inline
-                self._marginalize(pf, G, psi, asynchronous=not first)
+                self._marginalize(pf, G, psi, asynchronous=asynchronous)
+
+    # ---------------------------------------------- cross-frame solve pipeline
+    def _steady_key(self):
+        """What two pending solves must share to run as one batch."""
+        return (tuple(self.dims), int(self.cfg.solver.max_iterations),
+                bool(self.estimate_extrinsic), tuple(float(x) for x in self.noise),
+                float(self.cfg.solver.max_depth))
+
+    def _dispatch_steady(self, args, device=None) -> PendingSolve:
+        return dispatch_steady(args, device or self.device, self.dims,
+                               self.cfg.solver.max_iterations, bool(self.estimate_extrinsic),
+                               self.noise, float(self.cfg.solver.max_depth))
+
+    def dispatch_odometry(self):
+        """Async steady-state odometry (solve_async mode): build the factors
+        and DISPATCH the device solve without waiting for it. collect_solve()
+        installs the result before the next frame's IMU feed. With
+        `_defer_dispatch` set the prepared host arguments are left for the
+        multi-sequence coordinator's one batched solve."""
+        if self._solve_pending is not None:
+            raise RuntimeError("collect_solve() first: one solve in flight at a time")
+        if self.cfg.solver.solve_dtype != "float32":
+            raise ValueError("solve_async requires the f32 steady path")
+        G = np.asarray(self.G)
+        psi = np.asarray(self.cfg.noise.pixel_sqrt_info)
+        # depth seeding happens on the device inside steady_solve
+        with perf.phase("est.build_proj"):
+            pf, proj = self._proj_factors(self.marginalization_flag == MARGIN_OLD)
+        # the previous frame's marg must land before its priors are read
+        self.collect_marg()
+        old = (self.Ps.copy(), self.Qs.copy(), self.Vs.copy(), self.Bas.copy(), self.Bgs.copy())
+        # copies: the estimator's buffers change in place while the solve waits
+        args = tree_map(np.array, (self._window_state(), self._raw_imu_factors(),
+                                   self._tri_inputs(), proj, self.priors, G, psi))
+        handle = None
+        if not self._defer_dispatch:
+            with perf.phase("est.solve_dispatch"):
+                handle = self._dispatch_steady(args)
+        self._solve_pending = {
+            "handle": handle, "args": args, "key": self._steady_key(),
+            "old": old, "pf": pf, "G": G, "psi": psi,
+            "marg_flag": self.marginalization_flag,
+        }
+
+    def collect_solve(self):
+        """Install a pending async solve: reanchor, state install, outlier
+        cull, prior drag, async marg submit, failure check, window slide.
+        No-op when nothing is pending."""
+        if self._solve_pending is None:
+            return
+        p, self._solve_pending = self._solve_pending, None
+        if p["handle"] is None:
+            # deferred dispatch that no coordinator picked up: run it now
+            p["handle"] = self._dispatch_steady(p["args"])
+        with perf.phase("est.solve_collect"):
+            new_state, cost = p["handle"].collect()
+        old = p["old"]
+        self._install_solution(new_state, float(cost), old[0][0], old[1][0])
+        self.marginalization_flag = p["marg_flag"]
+        self._after_solve(p["pf"], old, p["G"], p["psi"], asynchronous=True)
+        if self.failure_detection():
+            self.clear_state()
+            return
+        self._finish_frame()
 
     def _reanchor(self, st: WindowState, P0_old, Q0_old) -> WindowState:
         """Rotate/translate the solution so frame-0 yaw and position match

@@ -28,7 +28,7 @@ from ..geom import quat_to_mat
 
 class FeatureManager:
     def __init__(self, capacity: int, window: int, vo_size: int, min_parallax: float,
-                 init_depth: float = 5.0, max_depth: float = 200.0, device="cpu"):
+                 init_depth: float = 5.0, max_depth: float = 200.0, *, device):
         self.device = torch.device(device)
         self.F = capacity
         self.B = window
@@ -381,20 +381,22 @@ def _triangulate_batch(obs, has_obs, start, P, Q, tic, qic):
 
 
 def _dlt_systems(obs, has_obs, start, P, Q, tic, qic):
-    """(n, 2B, 4) masked DLT rows of every track in its host camera frame."""
+    """(n, 2B, 4) masked DLT rows of every track in its host camera frame.
+    Every argument may carry the same leading sequence axes."""
     R = quat_to_mat(Q)  # (B,3,3)
     Ric = quat_to_mat(qic)
-    t_cam = P + R @ tic  # (B,3)
-    R_cam = R @ Ric  # (B,3,3)
-    t0 = t_cam[start]  # (n,3)
-    R0 = R_cam[start]  # (n,3,3)
+    t_cam = P + (R @ tic[..., None, :, None])[..., 0]  # (B,3)
+    R_cam = R @ Ric[..., None, :, :]  # (B,3,3)
+    t0 = torch.gather(t_cam, -2, start[..., None].expand(start.shape + (3,)))  # (n,3)
+    R0 = torch.gather(R_cam, -3, start[..., None, None].expand(start.shape + (3, 3)))  # (n,3,3)
     # relative transforms host -> each frame, exactly as the JAX reference
     # computes them (einsum "ji,bi->bj" / "ji,bik->bjk"): R0 (t_b - t0) and
     # R0 R_b. The reference's comment and feature_manager.cpp use R0^T; the
     # port keeps the reference's product so both packages seed the same
     # depths (ROADMAP, queue C, item 7).
-    t_rel = torch.einsum("nji,nbi->nbj", R0, t_cam[None] - t0[:, None])
-    R_rel = torch.einsum("nji,bik->nbjk", R0, R_cam)
+    t_rel = torch.einsum("...nji,...nbi->...nbj", R0,
+                         t_cam[..., None, :, :] - t0[..., :, None, :])
+    R_rel = torch.einsum("...nji,...bik->...nbjk", R0, R_cam)
     Pl = R_rel.transpose(-1, -2)
     Pt = -(Pl @ t_rel[..., None])[..., 0]
     Pm = torch.cat([Pl, Pt[..., None]], dim=-1)  # (n,B,3,4)
@@ -406,4 +408,4 @@ def _dlt_systems(obs, has_obs, start, P, Q, tic, qic):
     row0 = f[..., 0:1] * Pm[..., 2, :] - f[..., 2:3] * Pm[..., 0, :]
     row1 = f[..., 1:2] * Pm[..., 2, :] - f[..., 2:3] * Pm[..., 1, :]
     w = has_obs.to(obs.dtype)[..., None]
-    return torch.cat([row0 * w, row1 * w], dim=1)
+    return torch.cat([row0 * w, row1 * w], dim=-2)

@@ -18,7 +18,7 @@ def initial_structure(est) -> bool:
     hook = getattr(est, "_gt_init", None)
     if hook is None:
         raise NotImplementedError(
-            "isvins_tpu_torch has no SfM initialization yet (ROADMAP, port queue "
-            "item 3, 'SfM initialization'); install est._gt_init to initialize the window")
+            "isvins_tpu_torch has no SfM initialization yet (ROADMAP, queue A, "
+            "'SfM initialization'); install est._gt_init to initialize the window")
     hook(est)
     return True

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..factors.preintegration import cholesky_nan
 from ..geom import mat_to_quat, quat_mul, quat_normalize, quat_rotate, quat_to_mat, skew, so3_exp_quat
 
@@ -108,9 +109,9 @@ def _pnp_ransac_rounds(pts3d, pts2d, W, q_cw0, t_cw0):
 
 def pnp_ransac_gn(pts3d, pts2d, q_cw0, t_cw0, thresh: float = 10.0 / 460.0,
                   n_rounds: int = 96, min_set: int = 6, min_inliers: int = 5,
-                  iters: int = 10, seed: int = 0, device="cpu"):
+                  iters: int = 10, seed: int = 0, device=None):
     """Robust PnP: DLT hypotheses on random minimal subsets (all rounds
-    batched on `device`, f64), scored by inlier count, refit on the best
+    batched on `device`, None meaning the CUDA card, f64), scored by inlier count, refit on the best
     inlier set from the best hypothesis; the guess (q_cw0, t_cw0) is only
     round 0. Inputs and returns are host numpy: (ok, q_cw, t_cw,
     inlier_mask)."""
@@ -125,6 +126,7 @@ def pnp_ransac_gn(pts3d, pts2d, q_cw0, t_cw0, thresh: float = 10.0 / 460.0,
     W[0] = 1.0  # round 0: plain GN on everything from the guess
     for r_i in range(1, n_rounds):
         W[r_i, rng.choice(n, size=min(min_set, n), replace=False)] = 1.0
+    device = resolve_device(device)
     T = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
     p3, p2 = T(pts3d), T(pts2d)
     errs, qs, ts = _pnp_ransac_rounds(p3, p2, T(W), T(q_cw0), T(t_cw0))

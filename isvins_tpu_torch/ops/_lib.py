@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-All kernels compile into ONE shared library with a plain C interface:
+All kernels compile into ONE shared library with a plain C interface: one
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/libisvins_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
 
-at first use, from the checkout's own sources, into `build/kernels/` at
-the repository root (git-ignored). The file name carries a hash of the
+per source, all started together, then one `nvcc -shared` link into
+build/kernels/libisvins_kernels_<hash>.so, at first use, from the
+checkout's own sources, into `build/kernels/` at the repository root
+(git-ignored). The file name carries a hash of the
 sources, so an edited kernel is rebuilt and a stale library is never
 loaded. `-fmad=false` keeps every multiply and add separately rounded, as
 the plain PyTorch versions' elementwise ops are: contracted FMAs change the
@@ -35,15 +37,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # C entry points: name -> argument kinds ("p" pointer, "i" int). Every
 # function takes the stream last and returns cudaGetLastError() as int.
 _SIGNATURES = {
-    "isv_proj_rows": "p" * 14 + "i",
-    "isv_imu_rows": "p" * 20 + "i",
+    "isv_proj_rows": "p" * 14 + "ii",
+    "isv_imu_rows": "p" * 20 + "ii",
     "isv_schur_corr": "p" * 6 + "ii",
     "isv_linstep_solve": "p" * 10 + "iiii",
+    "isv_chol_solve_batched": "ppp" + "ii",
     "isv_retrieval_scores": "p" * 5 + "ii",
+    "isv_schur_reduce": "pppp" + "ii",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 _lock = threading.Lock()
 _lib = None
@@ -79,15 +85,31 @@ def build() -> Path:
         build_info["path"] = str(out)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)] + [
-        str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr, path=str(out))
+    # one compile per source, all running at once; then one link
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+    logs = [(obj, proc, proc.communicate()[1]) for obj, proc in jobs]
+    try:
+        for obj, proc, err in logs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {obj.name}:\n{err[-6000:]}")
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp)] + [str(o) for o, _, _ in logs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-6000:]}")
+        os.replace(tmp, out)
+    finally:
+        for obj, _, _ in logs:
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, path=str(out),
+                      ptxas="".join(err for _, _, err in logs))
     return out
 
 
@@ -116,6 +138,15 @@ def check(t: torch.Tensor, name: str, shape, dtype=torch.float32, device=None):
         raise ValueError(f"{name}: device {t.device} != {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def seq_rows(n: int, per_seq: torch.Tensor, name: str) -> int:
+    """Rows per sequence when `n` rows are S equal runs laid end to end and
+    `per_seq` is one vector (k,) for all of them or one per run (S,k)."""
+    S = per_seq.shape[0] if per_seq.dim() == 2 else 1
+    if S < 1 or n % S:
+        raise ValueError(f"{name}: {n} rows do not split into {S} sequences")
+    return max(n // S, 1)
 
 
 def launch(name: str, *args, device: torch.device):

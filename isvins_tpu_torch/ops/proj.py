@@ -9,22 +9,27 @@ from __future__ import annotations
 import torch
 
 from ..solver.proj_fast import eval_proj_rows
-from ._lib import check, launch
+from ._lib import check, launch, seq_rows
 
 
 def proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
     """(r (N,2), J_pi (N,2,6), J_pj (N,2,6), J_dep (N,2)), unweighted, f32.
+    tic (3,) and qic (4,) serve all rows; (S,3) and (S,4) serve S sequences
+    of N/S rows each, laid end to end (the batched solve).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise (f32 only, contiguous, one device)."""
+    N = pts_i.shape[0]
+    rows = seq_rows(N, tic, "tic")
     if not pts_i.is_cuda:
+        if tic.dim() == 2:
+            tic, qic = tic.repeat_interleave(rows, 0), qic.repeat_interleave(rows, 0)
         return eval_proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid)
     dev = pts_i.device
-    N = pts_i.shape[0]
     for t, name, shape in ((pts_i, "pts_i", (N, 3)), (pts_j, "pts_j", (N, 3)),
                            (Pi, "Pi", (N, 3)), (Qi, "Qi", (N, 4)), (Pj, "Pj", (N, 3)),
-                           (Qj, "Qj", (N, 4)), (tic, "tic", (3,)), (qic, "qic", (4,)),
-                           (dep, "dep", (N,))):
+                           (Qj, "Qj", (N, 4)), (tic, "tic", tic.shape[:-1] + (3,)),
+                           (qic, "qic", tic.shape[:-1] + (4,)), (dep, "dep", (N,))):
         check(t, name, shape, device=dev)
     check(valid, "valid", (N,), torch.bool, dev)
     kw = dict(dtype=torch.float32, device=dev)
@@ -35,7 +40,7 @@ def proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
     if N == 0:
         return r, J_pi, J_pj, J_dep
     launch("isv_proj_rows", pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid,
-           r, J_pi, J_pj, J_dep, N, device=dev)
+           r, J_pi, J_pj, J_dep, N, rows, device=dev)
     proj_rows.launches += 1
     return r, J_pi, J_pj, J_dep
 

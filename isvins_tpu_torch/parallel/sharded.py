@@ -1,5 +1,13 @@
-"""Synthetic window problems (port of isvins_tpu/parallel/sharded.py
-`make_batch_problem`; the sharded batch solve is not ported yet)."""
+"""Sequence-data-parallel window solves (port of
+isvins_tpu/parallel/sharded.py): N independent sliding-window problems as a
+leading axis of every leaf, solved by ONE batched program per device
+(solver.solve_window_batched), and the synthetic problems that feed it.
+
+The reference shards the leading axis over a `jax.sharding.Mesh`; here a
+mesh is a list of torch devices. With one device the whole batch is one
+program; with several, the leading axis is cut into contiguous chunks, one
+per device, with no communication, and the results are concatenated on the
+first device."""
 
 from __future__ import annotations
 
@@ -8,16 +16,72 @@ import torch
 
 from ..factors import ImuNoise, integrate_segment
 from ..geom import so3_exp_quat
-from ..solver import ImuFactors, PriorState, ProjFactors, WindowDims, WindowState
-from ..utils.convert import from_numpy_tree
+from ..device import resolve_device
+from ..solver import (ImuFactors, PriorState, ProjFactors, WindowDims, WindowState,
+                      solve_window_batched)
+from ..utils.convert import from_numpy_tree, tree_map
+
+
+def make_mesh(devices=None):
+    """The devices a batch is spread over, as a list of torch devices: None
+    is the one CUDA card; an int n is the first n cards; a list of devices
+    is taken as given (["cpu", "cpu"] runs two chunks on the CPU)."""
+    if devices is None:
+        return [resolve_device(None)]
+    if isinstance(devices, int):
+        return [resolve_device(f"cuda:{k}") for k in range(devices)]
+    return [resolve_device(d) for d in devices]
+
+
+def sharded_batch_solve(devices, dims: WindowDims, iters: int = 10):
+    """Returns (step, shard_leading) as the reference does.
+
+    `shard_leading(tree)` moves a tree whose every leaf has the leading
+    sequence axis to the device; with several devices it returns a list,
+    chunk k of the leading axis (contiguous chunks) on devices[k].
+    `step(state, imu, proj, priors, G, psi, info=None)` solves the batch with
+    solve_window_batched and returns (state, cost (NB,)); G (3,) and psi ()
+    serve every sequence, as in the reference. `info`, when given, receives
+    the LM iterations run (the most of any chunk). With several devices the
+    four trees are plain (sharded here) or the lists shard_leading made;
+    every chunk is solved on its own device, with no communication, and the
+    results are concatenated on devices[0]."""
+    devices = make_mesh(devices)
+    nd = len(devices)
+
+    def shard_leading(tree):
+        first = []
+        tree_map(lambda a: first.append(a.shape[0]), tree)
+        cuts = [round(k * first[0] / nd) for k in range(nd + 1)]
+        shards = [tree_map(lambda a, k=k: a[cuts[k]: cuts[k + 1]].to(devices[k]), tree)
+                  for k in range(nd)]
+        return shards[0] if nd == 1 else shards
+
+    def step(state, imu, proj, priors, G, psi, info=None):
+        if nd == 1:
+            return solve_window_batched(state, imu, proj, priors, G, psi, dims, iters=iters,
+                                        info=info)
+        shards = (state, imu, proj, priors)
+        if isinstance(state, WindowState):  # plain trees: shard them here
+            shards = zip(*shard_leading(shards))
+        infos = [{} for _ in devices]
+        outs = [solve_window_batched(*sh, G.to(dev), psi.to(dev), dims, iters=iters, info=i)
+                for sh, dev, i in zip(zip(*shards), devices, infos)]
+        if info is not None:
+            info["iterations"] = max(i["iterations"] for i in infos)
+        gather = lambda *parts: torch.cat([p.to(devices[0]) for p in parts], dim=0)
+        return tree_map(gather, *(o[0] for o in outs)), gather(*(o[1] for o in outs))
+
+    return step, shard_leading
 
 
 def make_batch_problem(n_seq: int, dims: WindowDims, dtype=torch.float32, seed: int = 0,
-                       device="cpu"):
+                       device=None):
     """Batch of `n_seq` random but well-conditioned window problems with a
     leading sequence axis on every leaf; the same numbers as the JAX
-    package's make_batch_problem at the same seed. Returns (state, imu,
-    proj, priors, G, psi)."""
+    package's make_batch_problem at the same seed. `device` None is the CUDA
+    card. Returns (state, imu, proj, priors, G, psi)."""
+    device = resolve_device(device)
     B, F, N, Vo = dims.B, dims.F, dims.N, dims.Vo
 
     def mk_seq(s):

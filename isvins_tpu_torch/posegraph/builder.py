@@ -68,8 +68,8 @@ class PoseGraphBuilder:
         """`camera`: the camera model (frontend.camera.make_camera) that maps
         normalized points to pixels; None treats the exported points as
         pixel coordinates. `device`: where the keyframe step, retrieval,
-        verification and optimization run (None: the CUDA card when
-        present, else the CPU)."""
+        verification and optimization run (None: the CUDA card; the CPU
+        only on `device="cpu"`)."""
         pg = cfg.posegraph
         self.cfg = cfg
         self.pg = pg

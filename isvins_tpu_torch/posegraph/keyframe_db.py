@@ -22,7 +22,7 @@ from .. import ops
 
 
 class KeyframeDB:
-    def __init__(self, capacity: int, max_kp: int, max_win_pts: int, device="cpu"):
+    def __init__(self, capacity: int, max_kp: int, max_win_pts: int, *, device):
         K, D, P = capacity, max_kp, max_win_pts
         self.K, self.D, self.P = K, D, P
         self.n = 0

@@ -186,7 +186,7 @@ def optimize_pose_graph(db, first_idx: int, cur_idx: int, iters: int = 10,
     if n >= dist_min_poses and dev.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "the multi-device pose-graph solve (parallel/dd_solver) is not ported yet "
-            "(ROADMAP, port queue item 5)")
+            "(ROADMAP, queue A, item 1)")
     sl = slice(first_idx, cur_idx + 1)
     fixed = np.zeros(n, bool)
     fixed[0] = True

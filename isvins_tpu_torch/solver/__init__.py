@@ -10,5 +10,6 @@ from .window import (  # noqa: F401
     build_normal_equations,
     retract_state,
     solve_window,
+    solve_window_batched,
     window_cost,
 )

@@ -66,16 +66,16 @@ def _cross(a, b):
 
 
 def eval_proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
-    """pts_i/pts_j (N,3), Pi/Pj (N,3), Qi/Qj (N,4) wxyz, tic (3,), qic (4,),
-    dep (N,), valid (N,) bool. Returns (r (N,2), J_pi (N,2,6), J_pj (N,2,6),
+    """pts_i/pts_j (N,3), Pi/Pj (N,3), Qi/Qj (N,4) wxyz, tic (3,) or (N,3),
+    qic (4,) or (N,4), dep (N,), valid (N,) bool. Returns (r (N,2), J_pi (N,2,6), J_pj (N,2,6),
     J_dep (N,2)), unweighted."""
     one = torch.ones_like(dep)
     d = torch.where(valid & (dep.abs() > 1e-8), dep, one)
 
     qi = tuple(Qi[:, k] for k in range(4))
     qj = tuple(Qj[:, k] for k in range(4))
-    qc = tuple(qic[k] * one for k in range(4))
-    tc = tuple(tic[k] * one for k in range(3))
+    qc = tuple(qic[..., k] * one for k in range(4))
+    tc = tuple(tic[..., k] * one for k in range(3))
 
     pi = tuple(pts_i[:, k] / d for k in range(3))
     bi = _qrot(qc, pi)

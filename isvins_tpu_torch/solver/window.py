@@ -19,6 +19,11 @@ Kernels (ops/): the f32 solve evaluates projection factors with K1, IMU
 factors with K2 and takes each LM step with K4 (whose first launch is K3).
 f64 solves (init BA, the init scale scan) call the plain versions, as the
 reference's f64 solves keep its XLA path.
+
+Every function here takes its leaves with or without leading sequence axes:
+solve_window_batched solves NB windows in one program (the reference's
+jax.vmap(solve_window)), with K1 and K2 launched once over the rows of all
+sequences and the NB linear systems factored by K5.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from ..factors.priors import (
 from ..geom import quat_mul, quat_normalize, so3_exp_quat
 from ..ops import proj as _proj_ops  # module: ops.proj imports solver.proj_fast
 from ..ops.imu import imu_rows, imu_rows_ref
-from ..ops.linstep import linstep, linstep_ref
+from ..ops.linstep import linstep, linstep_batched, linstep_ref
 from .proj_fast import eval_proj_rows
 
 
@@ -140,94 +145,126 @@ def _cauchy_rho(r_sq):
     return torch.log1p(r_sq)
 
 
+def _take(a, idx):
+    """a (..., B, k) gathered along its frame axis with idx (..., n) ->
+    (..., n, k)."""
+    return torch.gather(a, -2, idx[..., None].expand(idx.shape + a.shape[-1:]))
+
+
+def _bcast(m, t):
+    """m (lead...) reshaped so that it broadcasts against t (lead..., ...)."""
+    return m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
+
+
 def retract_state(state: WindowState, dx, dl, dims: WindowDims) -> WindowState:
-    """Manifold plus: p+dp, q*Exp(dtheta); additive on v/ba/bg/ex-trans/depth."""
+    """Manifold plus: p+dp, q*Exp(dtheta); additive on v/ba/bg/ex-trans/depth.
+    Every leaf may carry leading sequence axes (dx (..., D), dl (..., F))."""
     B = dims.B
-    d_pose = dx[: 6 * B].reshape(B, 6)
-    d_vb = dx[6 * B: 15 * B].reshape(B, 9)
-    d_ex = dx[15 * B:]
+    lead = dx.shape[:-1]
+    d_pose = dx[..., : 6 * B].reshape(lead + (B, 6))
+    d_vb = dx[..., 6 * B: 15 * B].reshape(lead + (B, 9))
+    d_ex = dx[..., 15 * B:]
     return WindowState(
-        P=state.P + d_pose[:, :3],
-        Q=quat_normalize(quat_mul(state.Q, so3_exp_quat(d_pose[:, 3:]))),
-        V=state.V + d_vb[:, :3],
-        Ba=state.Ba + d_vb[:, 3:6],
-        Bg=state.Bg + d_vb[:, 6:9],
-        tic=state.tic + d_ex[:3],
-        qic=quat_normalize(quat_mul(state.qic, so3_exp_quat(d_ex[3:]))),
+        P=state.P + d_pose[..., :3],
+        Q=quat_normalize(quat_mul(state.Q, so3_exp_quat(d_pose[..., 3:]))),
+        V=state.V + d_vb[..., :3],
+        Ba=state.Ba + d_vb[..., 3:6],
+        Bg=state.Bg + d_vb[..., 6:9],
+        tic=state.tic + d_ex[..., :3],
+        qic=quat_normalize(quat_mul(state.qic, so3_exp_quat(d_ex[..., 3:]))),
         dep=state.dep + dl,
     )
 
 
 def _eval_imu(state: WindowState, imu: ImuFactors, G, dims: WindowDims):
-    """Whitened residuals (B-1,15) + dense rows (B-1,15,D) + cost vector."""
+    """Whitened residuals (B-1,15) + dense rows (B-1,15,D) + cost vector.
+    With leading sequence axes on every leaf (G (..., 3) then), the factors
+    of all sequences go through ONE launch of K2 as flattened rows."""
     B, D = dims.B, dims.D
     dtype, dev = state.P.dtype, state.P.device
+    lead = state.P.shape[:-2]
+    n = B - 1
     pre = imu.pre
-    args = (state.P[:-1], state.Q[:-1], state.V[:-1], state.Ba[:-1], state.Bg[:-1],
-            state.P[1:], state.Q[1:], state.V[1:], state.Ba[1:], state.Bg[1:],
-            pre.delta_p, pre.delta_q, pre.delta_v, pre.sum_dt, pre.ba, pre.bg, pre.jac, G)
+    args = (state.P[..., :-1, :], state.Q[..., :-1, :], state.V[..., :-1, :],
+            state.Ba[..., :-1, :], state.Bg[..., :-1, :],
+            state.P[..., 1:, :], state.Q[..., 1:, :], state.V[..., 1:, :],
+            state.Ba[..., 1:, :], state.Bg[..., 1:, :],
+            pre.delta_p, pre.delta_q, pre.delta_v, pre.sum_dt, pre.ba, pre.bg, pre.jac)
+    flat = [a.reshape((-1,) + a.shape[len(lead) + 1:]).contiguous() for a in args]
     rows = imu_rows if dtype == torch.float32 else imu_rows_ref
-    r, Jcat = rows(*(a.contiguous() for a in args))
-    w = imu.valid.to(dtype)[:, None]
+    r, Jcat = rows(*flat, (G.reshape(-1, 3) if G.dim() > 1 else G).contiguous())
+    r, Jcat = r.reshape(lead + (n, 15)), Jcat.reshape(lead + (n, 15, 30))
+    w = imu.valid.to(dtype)[..., None]
     S = imu.sqrt
     Jcat = (S @ Jcat) * w[..., None]
     r_w = (S @ r[..., None])[..., 0] * w
 
-    n = B - 1
-    k = torch.arange(n, device=dev)
-    pose = torch.zeros((n, 15, B, 6), dtype=dtype, device=dev)
-    vb = torch.zeros((n, 15, B, 9), dtype=dtype, device=dev)
-    pose[k, :, k] = Jcat[:, :, 0:6]
-    vb[k, :, k] = Jcat[:, :, 6:15]
-    pose[k, :, k + 1] = Jcat[:, :, 15:21]
-    vb[k, :, k + 1] = Jcat[:, :, 21:30]
-    Jrows = torch.cat([pose.reshape(n, 15, 6 * B), vb.reshape(n, 15, 9 * B),
-                       torch.zeros((n, 15, 6), dtype=dtype, device=dev)], dim=2)
-    cvec = 0.5 * torch.sum(r_w * r_w, dim=1)
+    # factor k touches frames k and k+1: the (k, k) and (k, k+1) diagonals
+    # of the (factor, frame) grid, written through diagonal views
+    pose = torch.zeros(lead + (n, 15, B, 6), dtype=dtype, device=dev)
+    vb = torch.zeros(lead + (n, 15, B, 9), dtype=dtype, device=dev)
+    for blk, c0, off in ((pose, 0, 0), (vb, 6, 0), (pose, 15, 1), (vb, 21, 1)):
+        k = blk.shape[-1]
+        torch.diagonal(blk[..., off: off + n, :], dim1=-4, dim2=-2).copy_(
+            Jcat[..., c0: c0 + k].movedim(-3, -1))
+    Jrows = torch.cat([pose.reshape(lead + (n, 15, 6 * B)), vb.reshape(lead + (n, 15, 9 * B)),
+                       torch.zeros(lead + (n, 15, 6), dtype=dtype, device=dev)], dim=-1)
+    cvec = 0.5 * torch.sum(r_w * r_w, dim=-1)
     return r_w, Jrows, cvec
 
 
 def _eval_proj(state: WindowState, proj: ProjFactors, pixel_sqrt_info, dims: WindowDims,
                estimate_extrinsic: bool = False):
     """Whitened+robust projection residuals (N,2), compact block Jacobians
-    J_pi/J_pj/J_ex (N,2,6), landmark partials (N,2) and the cost vector."""
+    J_pi/J_pj/J_ex (N,2,6), landmark partials (N,2) and the cost vector.
+    With leading sequence axes (pixel_sqrt_info (...) then), the rows of all
+    sequences go through ONE launch of K1."""
     dtype = state.P.dtype
+    lead = state.P.shape[:-2]
+    N = proj.valid.shape[-1]
     idx_i, idx_j, fidx = proj.idx_i.long(), proj.idx_j.long(), proj.fidx.long()
-    P_i = state.P.index_select(0, idx_i)
-    Q_i = state.Q.index_select(0, idx_i)
-    P_j = state.P.index_select(0, idx_j)
-    Q_j = state.Q.index_select(0, idx_j)
-    dep_g = state.dep.index_select(0, fidx)
+    P_i, Q_i = _take(state.P, idx_i), _take(state.Q, idx_i)
+    P_j, Q_j = _take(state.P, idx_j), _take(state.Q, idx_j)
+    dep_g = torch.gather(state.dep, -1, fidx)
 
     if not estimate_extrinsic:
         rows = _proj_ops.proj_rows if dtype == torch.float32 else eval_proj_rows
-        r, J_pi, J_pj, J_dep = rows(
-            proj.pts_i.contiguous(), proj.pts_j.contiguous(), P_i, Q_i, P_j, Q_j,
-            state.tic.contiguous(), state.qic.contiguous(), dep_g, proj.valid)
+        flat = lambda a, k: a.reshape((-1,) + a.shape[a.dim() - k:]).contiguous()
+        tic, qic = state.tic.contiguous(), state.qic.contiguous()
+        if lead and rows is eval_proj_rows:  # the plain version takes one per row
+            tic, qic = (a.reshape(-1, a.shape[-1]).repeat_interleave(N, 0) for a in (tic, qic))
+        elif lead:
+            tic, qic = tic.reshape(-1, 3), qic.reshape(-1, 4)
+        out = rows(flat(proj.pts_i, 1), flat(proj.pts_j, 1), flat(P_i, 1), flat(Q_i, 1),
+                   flat(P_j, 1), flat(Q_j, 1), tic, qic, flat(dep_g, 0), flat(proj.valid, 0))
+        r, J_pi, J_pj, J_dep = (o.reshape(lead + (N,) + o.shape[1:]) for o in out)
         J_ex = torch.zeros_like(J_pi)
     else:
         # sanitize BEFORE evaluation: masked rows must not produce NaN
         d = torch.where(proj.valid & (dep_g.abs() > 1e-8), dep_g, torch.ones_like(dep_g))
         r, J_pi, J_pj, J_ex, J_dep = projection_residual_jacobians(
-            proj.pts_i, proj.pts_j, P_i, Q_i, P_j, Q_j, state.tic, state.qic, d)
-    s = pixel_sqrt_info
+            proj.pts_i, proj.pts_j, P_i, Q_i, P_j, Q_j, state.tic[..., None, :],
+            state.qic[..., None, :], d)
+    s = pixel_sqrt_info[..., None]
     vw = proj.valid.to(dtype)
-    r_sq = torch.sum((s * r) ** 2, dim=-1)
+    r_sq = torch.sum((s[..., None] * r) ** 2, dim=-1)
     w = (s * _cauchy_weight(r_sq)) * vw
-    r_w = r * w[:, None]
-    J_pi = J_pi * w[:, None, None]
-    J_pj = J_pj * w[:, None, None]
-    J_ex = J_ex * w[:, None, None]
-    J_dep = J_dep * w[:, None]
+    r_w = r * w[..., None]
+    J_pi = J_pi * w[..., None, None]
+    J_pj = J_pj * w[..., None, None]
+    J_ex = J_ex * w[..., None, None]
+    J_dep = J_dep * w[..., None]
     cvec = 0.5 * _cauchy_rho(r_sq) * vw
     return r_w, J_pi, J_pj, J_ex, J_dep, cvec
 
 
 def _eval_priors(state: WindowState, priors: PriorState, dims: WindowDims):
     """All sparse nonlinear priors -> list of (r_w, Jrows) + cost vector,
-    each Cauchy(1.0) (estimator.cpp:1102–1117)."""
+    each Cauchy(1.0) (estimator.cpp:1102–1117). Leading sequence axes
+    allowed on every leaf."""
     B, Vo, D = dims.B, dims.Vo, dims.D
     dtype, dev = state.P.dtype, state.P.device
+    lead = state.P.shape[:-2]
     rows, cvecs = [], []
 
     def robust(r_w, valid):
@@ -237,59 +274,66 @@ def _eval_priors(state: WindowState, priors: PriorState, dims: WindowDims):
         return _cauchy_weight(s) * v, 0.5 * _cauchy_rho(s) * v
 
     mv = lambda S, r: (S @ r[..., None])[..., 0]
+    zeros = lambda *shape: torch.zeros(lead + shape, dtype=dtype, device=dev)
 
     # SE3 prior on pose 0
-    r, J = se3_prior_residual_jacobians(priors.se3_t, priors.se3_q, state.P[0], state.Q[0])
+    r, J = se3_prior_residual_jacobians(priors.se3_t, priors.se3_q,
+                                        state.P[..., 0, :], state.Q[..., 0, :])
     r_w = mv(priors.se3_sqrt, r)
     w, c = robust(r_w, priors.se3_valid)
-    Jrow = torch.zeros((6, D), dtype=dtype, device=dev)
-    Jrow[:, 0:6] = (priors.se3_sqrt @ J) * w
-    rows.append((r_w * w, Jrow))
-    cvecs.append(c.reshape(1))
+    Jrow = zeros(6, D)
+    Jrow[..., :, 0:6] = (priors.se3_sqrt @ J) * w[..., None, None]
+    rows.append((r_w * w[..., None], Jrow))
+    cvecs.append(c[..., None])
 
     # VB prior on frame Vo-1
     k = Vo - 1
-    r, J = linear9_residual_jacobians(priors.vb, state.V[k], state.Ba[k], state.Bg[k])
+    r, J = linear9_residual_jacobians(priors.vb, state.V[..., k, :], state.Ba[..., k, :],
+                                      state.Bg[..., k, :])
     r_w = mv(priors.vb_sqrt, r)
     w, c = robust(r_w, priors.vb_valid)
-    Jrow = torch.zeros((9, D), dtype=dtype, device=dev)
-    Jrow[:, 6 * B + 9 * k: 6 * B + 9 * k + 9] = (priors.vb_sqrt @ J) * w
-    rows.append((r_w * w, Jrow))
-    cvecs.append(c.reshape(1))
+    Jrow = zeros(9, D)
+    Jrow[..., :, 6 * B + 9 * k: 6 * B + 9 * k + 9] = (priors.vb_sqrt @ J) * w[..., None, None]
+    rows.append((r_w * w[..., None], Jrow))
+    cvecs.append(c[..., None])
 
     # relative-pose edges (k-1, k), k = 1..Vo-1; slot 0 is inert: its
     # i-side block has no frame (jax.nn.one_hot(-1) is a zero row), so it
-    # is masked explicitly rather than indexed with -1 (which would wrap)
+    # is left out of the (k, k-1) diagonal rather than indexed with -1
+    # (which would wrap)
     ks = torch.arange(Vo, device=dev)
     km1 = torch.clamp(ks - 1, min=0)
     r, Ji, Jj = relpose_residual_jacobians(
-        priors.rel_dt, priors.rel_dq, state.P[km1], state.Q[km1], state.P[ks], state.Q[ks])
+        priors.rel_dt, priors.rel_dq, state.P[..., km1, :], state.Q[..., km1, :],
+        state.P[..., ks, :], state.Q[..., ks, :])
     S = priors.rel_sqrt
     r_w = mv(S, r)
     w, c = robust(r_w, priors.rel_valid)
-    Jrel = torch.zeros((Vo, 6, B, 6), dtype=dtype, device=dev)
-    Jrel[ks[1:], :, ks[1:] - 1] += ((S @ Ji) * w[:, None, None])[1:]
-    Jrel[ks, :, ks] += (S @ Jj) * w[:, None, None]
-    Jfull = torch.zeros((Vo, 6, D), dtype=dtype, device=dev)
-    Jfull[:, :, : 6 * B] = Jrel.reshape(Vo, 6, 6 * B)
-    rows.append(((r_w * w[:, None]).reshape(-1), Jfull.reshape(-1, D)))
+    Jrel = zeros(Vo, 6, B, 6)
+    torch.diagonal(Jrel[..., 1:, :, : Vo - 1, :], dim1=-4, dim2=-2).copy_(
+        ((S @ Ji) * w[..., None, None])[..., 1:, :, :].movedim(-3, -1))
+    torch.diagonal(Jrel[..., :, :, :Vo, :], dim1=-4, dim2=-2).add_(
+        ((S @ Jj) * w[..., None, None]).movedim(-3, -1))
+    Jfull = zeros(Vo, 6, D)
+    Jfull[..., : 6 * B] = Jrel.reshape(lead + (Vo, 6, 6 * B))
+    rows.append(((r_w * w[..., None]).reshape(lead + (-1,)), Jfull.reshape(lead + (-1, D))))
     cvecs.append(c)
 
-    # roll-pitch edges
-    K = priors.rp.idx.shape[0]
+    # roll-pitch edges: edge k sits on frame idx[k] (a one-hot spread)
+    K = priors.rp.idx.shape[-1]
     idx = priors.rp.idx.long()
-    r, J = rollpitch_residual_jacobians(priors.rp.q_meas, state.Q[idx])
+    # an emptied slot has idx -1: it reads frame 0 and is masked by `valid`
+    r, J = rollpitch_residual_jacobians(priors.rp.q_meas, _take(state.Q, idx.clamp(min=0)))
     S = priors.rp.sqrt_info
     r_w = mv(S, r)
     w, c = robust(r_w, priors.rp.valid)
-    Jrp = torch.zeros((K, 2, B, 6), dtype=dtype, device=dev)
-    kk = torch.arange(K, device=dev)
-    Jrp[kk, :, idx] = (S @ J) * w[:, None, None]
-    Jfull = torch.zeros((K, 2, D), dtype=dtype, device=dev)
-    Jfull[:, :, : 6 * B] = Jrp.reshape(K, 2, 6 * B)
-    rows.append(((r_w * w[:, None]).reshape(-1), Jfull.reshape(-1, D)))
+    on = (idx[..., None] == torch.arange(B, device=dev)).to(dtype)  # (..., K, B)
+    Jrp = ((S @ J) * w[..., None, None])[..., None, :] * on[..., None, :, None]
+    Jfull = zeros(K, 2, D)
+    Jfull[..., : 6 * B] = Jrp.reshape(lead + (K, 2, 6 * B))
+    rows.append(((r_w * w[..., None]).reshape(lead + (-1,)), Jfull.reshape(lead + (-1, D))))
     cvecs.append(c)
-    return rows, torch.cat(cvecs)
+    return rows, torch.cat(cvecs, dim=-1)
 
 
 def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactors,
@@ -298,90 +342,96 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
     """Returns (H (D,D), b (D,), h (F,), W (F,Dr), b_l (F,), cost) with the
     landmark coupling W in the reduced layout Dr = 6B+6 ([pose | ex]).
     The projection Hessian is accumulated block-wise: per observation the
-    compact 6x6 products are formed and added into the (B,B) block grid."""
+    compact 6x6 products are formed and added into the (B,B) block grid.
+
+    Every leaf may carry leading sequence axes (G (..., 3) and
+    pixel_sqrt_info (...) then); the outputs carry them too. The
+    scatter-adds then run once over all sequences, on indices offset by the
+    sequence, so nothing is summed across sequences."""
     B, F, D = dims.B, dims.F, dims.D
     Dr = 6 * B + 6
     dtype, dev = state.P.dtype, state.P.device
+    lead = state.P.shape[:-2]
+    S = int(np.prod(lead)) if lead else 1
+    seq = torch.arange(S, device=dev).reshape(lead + (1,))  # sequence number, per row
 
     r_imu, J_imu, cv_imu = _eval_imu(state, imu, G, dims)
     r_proj, J_pi, J_pj, J_ex, J_dep, cv_proj = _eval_proj(
         state, proj, pixel_sqrt_info, dims, estimate_extrinsic)
     prior_rows, cv_prior = _eval_priors(state, priors, dims)
 
-    Jip = torch.cat([J_imu.reshape(-1, D)] + [J for _, J in prior_rows], dim=0)
-    rip = torch.cat([r_imu.reshape(-1)] + [r for r, _ in prior_rows], dim=0)
+    Jip = torch.cat([J_imu.reshape(lead + (-1, D))] + [J for _, J in prior_rows], dim=-2)
+    rip = torch.cat([r_imu.reshape(lead + (-1,))] + [r for r, _ in prior_rows], dim=-1)
     if not estimate_extrinsic:
-        Jip = torch.cat([Jip[:, : 15 * B], torch.zeros_like(Jip[:, 15 * B:])], dim=1)
-    H = Jip.T @ Jip
-    b = -(Jip.T @ rip)
+        Jip = torch.cat([Jip[..., : 15 * B], torch.zeros_like(Jip[..., 15 * B:])], dim=-1)
+    H = Jip.transpose(-1, -2) @ Jip
+    b = -(Jip.transpose(-1, -2) @ rip[..., None])[..., 0]
+
+    def scatter(n_slots, index, src):
+        """Rows of src (..., n, *k) summed into (..., n_slots, *k) at index
+        (..., n), each sequence into its own slots."""
+        out = torch.zeros((S * n_slots,) + src.shape[len(lead) + 1:], dtype=dtype, device=dev)
+        if lead:
+            index = (seq * n_slots + index).reshape(-1)
+        out.index_add_(0, index, src.reshape((-1,) + src.shape[len(lead) + 1:]))
+        return out.reshape(lead + (n_slots,) + src.shape[len(lead) + 1:])
 
     # ---- projection block accumulation ----
     idx_i, idx_j, fidx = proj.idx_i.long(), proj.idx_j.long(), proj.fidx.long()
-    G_ii = J_pi.transpose(1, 2) @ J_pi
-    G_jj = J_pj.transpose(1, 2) @ J_pj
-    G_ij = J_pi.transpose(1, 2) @ J_pj
-    g_i = (J_pi.transpose(1, 2) @ r_proj[..., None])[..., 0]
-    g_j = (J_pj.transpose(1, 2) @ r_proj[..., None])[..., 0]
+    T = lambda J: J.transpose(-1, -2)
+    G_ii = T(J_pi) @ J_pi
+    G_jj = T(J_pj) @ J_pj
+    G_ij = T(J_pi) @ J_pj
+    g_i = (T(J_pi) @ r_proj[..., None])[..., 0]
+    g_j = (T(J_pj) @ r_proj[..., None])[..., 0]
 
-    diag = torch.zeros((B, 6, 6), dtype=dtype, device=dev)
-    diag.index_add_(0, idx_i, G_ii)
-    diag.index_add_(0, idx_j, G_jj)
-    offd = torch.zeros((B * B, 6, 6), dtype=dtype, device=dev)
-    offd.index_add_(0, idx_i * B + idx_j, G_ij)
-    offd = offd.reshape(B, B, 6, 6)
-    Hblk = offd + offd.permute(1, 0, 3, 2)
-    ar = torch.arange(B, device=dev)
-    Hblk[ar, ar] += diag
-    H_pose = Hblk.permute(0, 2, 1, 3).reshape(6 * B, 6 * B)
-    gb = torch.zeros((B, 6), dtype=dtype, device=dev)
-    gb.index_add_(0, idx_i, g_i)
-    gb.index_add_(0, idx_j, g_j)
+    diag = scatter(B, idx_i, G_ii) + scatter(B, idx_j, G_jj)
+    offd = scatter(B * B, idx_i * B + idx_j, G_ij).reshape(lead + (B, B, 6, 6))
+    Hblk = offd + offd.transpose(-4, -3).transpose(-1, -2)
+    torch.diagonal(Hblk, dim1=-4, dim2=-3).add_(diag.movedim(-3, -1))
+    H_pose = Hblk.transpose(-3, -2).reshape(lead + (6 * B, 6 * B))
+    gb = scatter(B, idx_i, g_i) + scatter(B, idx_j, g_j)
 
-    H[: 6 * B, : 6 * B] += H_pose
-    b[: 6 * B] -= gb.reshape(6 * B)
+    H[..., : 6 * B, : 6 * B] += H_pose
+    b[..., : 6 * B] -= gb.reshape(lead + (6 * B,))
 
-    # landmark coupling rows (compact)
-    wi = (J_dep[:, None, :] @ J_pi)[:, 0]  # (N,6)
-    wj = (J_dep[:, None, :] @ J_pj)[:, 0]
-    n = J_dep.shape[0]
-    on = torch.arange(n, device=dev)
-    Wrows = torch.zeros((n, B, 6), dtype=dtype, device=dev)
-    Wrows.index_put_((on, idx_i), wi, accumulate=True)
-    Wrows.index_put_((on, idx_j), wj, accumulate=True)
-    Wrows = Wrows.reshape(n, 6 * B)
+    # landmark coupling rows (compact): observation n couples its landmark
+    # to frames idx_i[n] and idx_j[n]
+    wi = (J_dep[..., None, :] @ J_pi)[..., 0, :]  # (N,6)
+    wj = (J_dep[..., None, :] @ J_pj)[..., 0, :]
+    n = J_dep.shape[-2]
+    row = torch.arange(n, device=dev) * B
+    Wrows = (scatter(n * B, row + idx_i, wi) + scatter(n * B, row + idx_j, wj)).reshape(
+        lead + (n, 6 * B))
 
     if estimate_extrinsic:
-        G_ie = J_pi.transpose(1, 2) @ J_ex
-        G_je = J_pj.transpose(1, 2) @ J_ex
-        G_ee = torch.einsum("nra,nrb->ab", J_ex, J_ex)
-        g_e = torch.einsum("nra,nr->a", J_ex, r_proj)
-        E = torch.zeros((B, 6, 6), dtype=dtype, device=dev)
-        E.index_add_(0, idx_i, G_ie)
-        E.index_add_(0, idx_j, G_je)
-        E_rows = E.reshape(6 * B, 6)
-        H[: 6 * B, 15 * B:] += E_rows
-        H[15 * B:, : 6 * B] += E_rows.T
-        H[15 * B:, 15 * B:] += G_ee
-        b[15 * B:] -= g_e
-        we = (J_dep[:, None, :] @ J_ex)[:, 0]
-        Wrows = torch.cat([Wrows, we], dim=1)
+        G_ie = T(J_pi) @ J_ex
+        G_je = T(J_pj) @ J_ex
+        G_ee = torch.einsum("...nra,...nrb->...ab", J_ex, J_ex)
+        g_e = torch.einsum("...nra,...nr->...a", J_ex, r_proj)
+        E_rows = (scatter(B, idx_i, G_ie) + scatter(B, idx_j, G_je)).reshape(lead + (6 * B, 6))
+        H[..., : 6 * B, 15 * B:] += E_rows
+        H[..., 15 * B:, : 6 * B] += T(E_rows)
+        H[..., 15 * B:, 15 * B:] += G_ee
+        b[..., 15 * B:] -= g_e
+        we = (J_dep[..., None, :] @ J_ex)[..., 0, :]
+        Wrows = torch.cat([Wrows, we], dim=-1)
     else:
-        H[15 * B:, 15 * B:] += torch.eye(6, dtype=dtype, device=dev)
-        Wrows = torch.cat([Wrows, torch.zeros((n, 6), dtype=dtype, device=dev)], dim=1)
+        H[..., 15 * B:, 15 * B:] += torch.eye(6, dtype=dtype, device=dev)
+        Wrows = torch.cat([Wrows, torch.zeros(lead + (n, 6), dtype=dtype, device=dev)], dim=-1)
 
     # landmark system: per-feature scalar Hessian + coupling row + rhs
     payload = torch.cat([
         torch.sum(J_dep * J_dep, dim=-1, keepdim=True),
         Wrows,
         -torch.sum(J_dep * r_proj, dim=-1, keepdim=True),
-    ], dim=1)
-    agg = torch.zeros((F, Dr + 2), dtype=dtype, device=dev)
-    agg.index_add_(0, fidx, payload)
-    h = agg[:, 0].contiguous()
-    W = agg[:, 1: 1 + Dr].contiguous()
-    b_l = agg[:, 1 + Dr].contiguous()
+    ], dim=-1)
+    agg = scatter(F, fidx, payload)
+    h = agg[..., 0].contiguous()
+    W = agg[..., 1: 1 + Dr].contiguous()
+    b_l = agg[..., 1 + Dr].contiguous()
 
-    cost = torch.sum(torch.cat([cv_imu, cv_proj, cv_prior]))
+    cost = torch.sum(torch.cat([cv_imu, cv_proj, cv_prior], dim=-1), dim=-1)
     return H, b, h, W, b_l, cost
 
 
@@ -390,7 +440,47 @@ def window_cost(state, imu, proj, priors, G, pixel_sqrt_info, dims):
     _, _, cv_imu = _eval_imu(state, imu, G, dims)
     cv_proj = _eval_proj(state, proj, pixel_sqrt_info, dims)[5]
     _, cv_prior = _eval_priors(state, priors, dims)
-    return torch.sum(torch.cat([cv_imu, cv_proj, cv_prior]))
+    return torch.sum(torch.cat([cv_imu, cv_proj, cv_prior], dim=-1), dim=-1)
+
+
+def _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extrinsic,
+        init_lambda, info, step):
+    """The Levenberg–Marquardt loop of solve_window and solve_window_batched
+    over whatever leading sequence axes the leaves carry. `lam`, the accept
+    decision and `done` are per sequence; a sequence that has converged is
+    frozen (its state, normal equations and lam no longer change) while the
+    others iterate, as jax.vmap of the reference's while_loop leaves it.
+    Nothing is reduced across sequences but the exit test."""
+    dtype, dev = state.P.dtype, state.P.device
+    lead = state.P.shape[:-2]
+
+    def build(st):
+        return build_normal_equations(st, imu, proj, priors, G, pixel_sqrt_info, dims,
+                                      estimate_extrinsic)
+
+    lam = torch.full(lead, init_lambda, dtype=dtype, device=dev)
+    done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    ne = build(state)
+    it = 0
+    while it < iters:
+        it += 1
+        H, b, h, W, b_l, cost0 = ne
+        dx, dl = step(H, b, W, h, b_l, lam)
+        trial = retract_state(state, dx, dl, dims)
+        ne_trial = build(trial)
+        cost1 = ne_trial[-1]
+        ok = (cost1 < cost0) & torch.isfinite(cost1)
+        take = ok & ~done
+        state = WindowState(*(torch.where(_bcast(take, t), t, s) for s, t in zip(state, trial)))
+        ne = tuple(torch.where(_bcast(take, t), t, s) for s, t in zip(ne, ne_trial))
+        lam = torch.where(done, lam, torch.where(ok, torch.clamp(lam * 0.4, min=1e-9),
+                                                 torch.clamp(lam * 8.0, max=1e6)))
+        done = done | (take & (cost0 - cost1 < 1e-6 * torch.clamp(cost0, min=1e-30)))
+        if bool(done.all()):  # the one host sync per iteration
+            break
+    if info is not None:
+        info["iterations"] = it
+    return state, ne[-1]
 
 
 def solve_window(state: WindowState, imu: ImuFactors, proj: ProjFactors,
@@ -407,34 +497,36 @@ def solve_window(state: WindowState, imu: ImuFactors, proj: ProjFactors,
     iteration on the host (the early-exit flag); lambda and the accept
     decision stay on the device. `info`, when given, receives the number of
     LM iterations run."""
-    B = dims.B
-    dtype, dev = state.P.dtype, state.P.device
-    step = linstep if dtype == torch.float32 else linstep_ref
+    if state.P.dim() != 2:
+        raise ValueError("solve_window takes one problem; see solve_window_batched")
+    n_pose, D = 6 * dims.B, dims.D
+    if state.P.dtype == torch.float32:
+        step = lambda H, b, W, h, b_l, lam: linstep(H, b, W, h, b_l, lam, n_pose)
+    else:
+        step = lambda H, b, W, h, b_l, lam: linstep_ref(H, b, W, h, b_l, lam, n_pose, D)
+    return _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extrinsic,
+               init_lambda, info, step)
 
-    def build(st):
-        return build_normal_equations(st, imu, proj, priors, G, pixel_sqrt_info, dims,
-                                      estimate_extrinsic)
 
-    lam = torch.tensor(init_lambda, dtype=dtype, device=dev)
-    ne = build(state)
-    it = 0
-    while it < iters:
-        it += 1
-        H, b, h, W, b_l, cost0 = ne
-        if dtype == torch.float32:
-            dx, dl = step(H, b, W, h, b_l, lam, 6 * B)
-        else:
-            dx, dl = step(H, b, W, h, b_l, lam, 6 * B, dims.D)
-        trial = retract_state(state, dx, dl, dims)
-        ne_trial = build(trial)
-        cost1 = ne_trial[-1]
-        ok = (cost1 < cost0) & torch.isfinite(cost1)
-        state = WindowState(*(torch.where(ok, t, s) for s, t in zip(state, trial)))
-        ne = tuple(torch.where(ok, t, s) for s, t in zip(ne, ne_trial))
-        lam = torch.where(ok, torch.clamp(lam * 0.4, min=1e-9), torch.clamp(lam * 8.0, max=1e6))
-        converged = ok & (cost0 - cost1 < 1e-6 * torch.clamp(cost0, min=1e-30))
-        if bool(converged):  # the one host sync per iteration
-            break
-    if info is not None:
-        info["iterations"] = it
-    return state, ne[-1]
+def solve_window_batched(state: WindowState, imu: ImuFactors, proj: ProjFactors,
+                         priors: PriorState, G, pixel_sqrt_info, dims: WindowDims,
+                         iters: int = 10, estimate_extrinsic: bool = False,
+                         init_lambda: float = 1e-4, info: dict | None = None):
+    """solve_window for NB independent problems at once: every leaf carries
+    a leading sequence axis; G is (3,) or (NB,3), pixel_sqrt_info () or
+    (NB,). Returns (state, cost (NB,)). What jax.vmap(solve_window) is in
+    the reference: per-sequence lambda, accept test and convergence, a
+    converged sequence frozen while the others iterate, the loop over when
+    all are done or at `iters`. Per iteration the NB sequences share ONE
+    launch each of K1 and K2 (flattened rows) and ONE of K5 (a thread block
+    per sequence); K3 and K4 are not on this path. Still one host read per
+    iteration. A sequence whose system is not SPD or whose cost is NaN only
+    has its own steps rejected."""
+    if state.P.dim() != 3:
+        raise ValueError("solve_window_batched takes a leading sequence axis on every leaf")
+    NB = state.P.shape[0]
+    G = G.expand(NB, 3) if G.dim() == 1 else G
+    psi = pixel_sqrt_info.expand(NB) if pixel_sqrt_info.dim() == 0 else pixel_sqrt_info
+    step = lambda H, b, W, h, b_l, lam: linstep_batched(H, b, W, h, b_l, lam, 6 * dims.B)
+    return _lm(state, imu, proj, priors, G, psi, dims, iters, estimate_extrinsic, init_lambda,
+               info, step)

@@ -19,13 +19,15 @@ _DB_FIELDS = [
 ]
 
 
-def load_pose_graph(path: str, capacity: int = 0, device="cpu"):
-    """A KeyframeDB on `device` from a pose-graph snapshot. The BoW state
+def load_pose_graph(path: str, capacity: int = 0, device=None):
+    """A KeyframeDB on `device` (None: the CUDA card) from a pose-graph snapshot. The BoW state
     is restored when the snapshot has it (older ones re-freeze the
     vocabulary from the loaded keyframes on the next adds); the snapshot's
     vocabulary width wins."""
+    from ..device import resolve_device
     from ..posegraph.keyframe_db import KeyframeDB
 
+    device = resolve_device(device)
     z = np.load(path, allow_pickle=False)
     n = int(z["n"])
     db = KeyframeDB(max(int(z["K"]), capacity), int(z["D"]), int(z["P"]), device=device)

@@ -5,7 +5,9 @@ are array-likes — the port's own host trees, or the JAX package's
 NamedTuples after `np.asarray` of each leaf — and returns the PORT's
 NamedTuple types (matched by class name) holding tensors on `device`.
 Float leaves are cast to `dtype` when it is given; integer and bool leaves
-keep their types. `to_numpy_tree` goes the other way.
+keep their types. `to_numpy_tree` goes the other way. `tree_map` applies a
+function leaf by leaf to one tree or to several of one structure (stacking
+the argument trees of several sequences, taking one sequence's row).
 """
 
 from __future__ import annotations
@@ -61,3 +63,12 @@ def to_numpy_tree(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def tree_map(fn, tree, *rest):
+    """fn(leaf, *leaves of rest) over trees of NamedTuples/tuples/lists."""
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)

@@ -250,7 +250,8 @@ def test_triangulate_matches_reference(jax_run):
 
 
 def test_port_imports_no_jax():
-    """Every isvins_tpu_torch module (the pose graph's among them), imported
+    """Every isvins_tpu_torch module (the pose graph's and the multi-sequence
+    path's among them), imported
     in a fresh interpreter, leaves jax (and the JAX package) out of
     sys.modules."""
     root = Path(__file__).resolve().parents[1]
@@ -263,8 +264,10 @@ def test_port_imports_no_jax():
         "new = {'isvins_tpu_torch.posegraph.builder', 'isvins_tpu_torch.posegraph.keyframe_db',\n"
         "       'isvins_tpu_torch.posegraph.optimize', 'isvins_tpu_torch.posegraph.brief',\n"
         "       'isvins_tpu_torch.ops.hamming', 'isvins_tpu_torch.initial.pnp',\n"
-        "       'isvins_tpu_torch.frontend.camera', 'isvins_tpu_torch.frontend.image_ops'}\n"
-        "assert len(mods) >= 45 and new <= set(mods), mods\n"
+        "       'isvins_tpu_torch.frontend.camera', 'isvins_tpu_torch.frontend.image_ops',\n"
+        "       'isvins_tpu_torch.ops.chol_batched', 'isvins_tpu_torch.ops.schur',\n"
+        "       'isvins_tpu_torch.parallel.multi_seq', 'isvins_tpu_torch.parallel.sharded'}\n"
+        "assert len(mods) >= 47 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 and K6 of isvins_tpu_torch on the card, held
+"""The CUDA kernels K1-K7 of isvins_tpu_torch on the card, held
 against their plain PyTorch versions on the same card inputs at the product
 shapes.
 
@@ -28,6 +28,7 @@ CASES = {
     "schur_corr": (ops.schur_corr, ops.schur_corr_ref, 2e-5, lambda r: 2e-3),
     "linstep": (ops.linstep, lambda *a: ops.linstep_ref(*a, D), 2e-3,
                 lambda r: 2e-3 * float(r.abs().max())),
+    "schur_reduce": (ops.schur_reduce, ops.schur_reduce_ref, 2e-5, lambda r: 2e-3),
 }
 
 
@@ -107,7 +108,8 @@ def test_solve_window_on_card_runs_through_kernels():
     torch.cuda.synchronize()
     it = info["iterations"]
     assert ops.launch_counts() == {"proj_rows": it + 1, "imu_rows": it + 1,
-                                   "schur_corr": it, "linstep": it, "retrieval_scores": 0}
+                                   "schur_corr": it, "linstep": it, "chol_solve_batched": 0,
+                                   "retrieval_scores": 0, "schur_reduce": 0}
     assert all(bool(torch.isfinite(a).all()) for a in st)
     _, cost_cpu = solve_window(*args("cpu"), dims, iters=10)
     assert abs(float(cost) - float(cost_cpu)) <= 1e-3 * float(cost_cpu)
@@ -156,3 +158,138 @@ def test_retrieval_scores_raises_on_bad_cuda_input():
         ops.retrieval_scores(qd[:32], qv[:32], dbd[:, :32].contiguous(),
                              dbv[:, :32].contiguous(), thresh)
     assert ops.retrieval_scores.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NB", [1, 4, 8, 16, 32])
+def test_chol_solve_batched_on_card(NB):
+    """K5 at D = 276: one launch for the whole batch, counted once, equal to
+    its plain version within the batched step's bound of the reference
+    (tests/test_pallas_ops.py:176-184: 2e-3 of the largest entry, rtol
+    2e-3); a system that is not SPD gives a NaN row and leaves the others."""
+    dev = _card()
+    import chip_smoke
+
+    H, b = chip_smoke.chol_inputs(dev, NB)
+    before = ops.chol_solve_batched.launches
+    x = ops.chol_solve_batched(H, b)
+    torch.cuda.synchronize()
+    assert ops.chol_solve_batched.launches == before + 1
+    ref = ops.chol_solve_batched_ref(H, b)
+    assert x.shape == (NB, D)
+    torch.testing.assert_close(x, ref, rtol=2e-3, atol=2e-3 * float(ref.abs().max()))
+    H = H.clone()
+    H[NB - 1, 100, 100] = -1.0
+    bad = ops.chol_solve_batched(H, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(bad[NB - 1]).all())
+    assert torch.equal(bad[: NB - 1], x[: NB - 1])
+
+
+@pytest.mark.gpu
+def test_chol_and_schur_reduce_raise_on_bad_cuda_input():
+    """K5 and K7 take f32, contiguous tensors of matching shapes on one
+    device; anything else raises and nothing is launched."""
+    dev = _card()
+    import chip_smoke
+
+    H, b = chip_smoke.chol_inputs(dev, 2)
+    before = ops.chol_solve_batched.launches, ops.schur_reduce.launches
+    with pytest.raises(TypeError):
+        ops.chol_solve_batched(H.double(), b.double())
+    with pytest.raises(ValueError):  # not contiguous
+        ops.chol_solve_batched(H.transpose(1, 2), b)
+    with pytest.raises(ValueError):  # one problem without its batch axis
+        ops.chol_solve_batched(H[0], b[0])
+    with pytest.raises(ValueError):  # wrong right-hand side
+        ops.chol_solve_batched(H, b[:, :-1].contiguous())
+    with pytest.raises(ValueError):  # b on another device
+        ops.chol_solve_batched(H, b.cpu())
+    with pytest.raises(ValueError):  # the packed triangle would not fit shared memory
+        ops.chol_solve_batched(torch.eye(400, device=dev)[None].contiguous(),
+                               torch.ones((1, 400), device=dev))
+    Hr, br, W, h, bl = chip_smoke.kernel_inputs(dev)["schur_reduce"]
+    with pytest.raises(TypeError):
+        ops.schur_reduce(Hr.double(), br, W, h, bl)
+    with pytest.raises(ValueError):
+        ops.schur_reduce(Hr, br, W.T, h, bl)
+    with pytest.raises(ValueError):
+        ops.schur_reduce(Hr, br, W, h[:10], bl)
+    with pytest.raises(ValueError):
+        ops.schur_reduce(Hr[:-1], br, W, h, bl)
+    assert (ops.chol_solve_batched.launches, ops.schur_reduce.launches) == before
+
+
+@pytest.mark.gpu
+def test_solve_window_batched_on_card_runs_through_kernels():
+    """An f32 batched solve on the card launches K1 and K2 once per
+    evaluation and K5 once per LM iteration, never K3 or K4, and in f64 its
+    rows are the single solves (cost 1e-9 relative)."""
+    dev = _card()
+    from isvins_tpu_torch.parallel import make_batch_problem
+    from isvins_tpu_torch.solver import WindowDims, solve_window, solve_window_batched
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    dims = WindowDims(10, 4, 128, 512)
+    prob = make_batch_problem(3, dims, torch.float32, device=dev)
+    ops.reset_launch_counts()
+    info = {}
+    st, cost = solve_window_batched(*prob, dims, iters=10, info=info)
+    torch.cuda.synchronize()
+    it = info["iterations"]
+    assert ops.launch_counts() == {"proj_rows": it + 1, "imu_rows": it + 1, "schur_corr": 0,
+                                   "linstep": 0, "chol_solve_batched": it,
+                                   "retrieval_scores": 0, "schur_reduce": 0}
+    assert all(bool(torch.isfinite(a).all()) for a in st) and tuple(cost.shape) == (3,)
+    p64 = make_batch_problem(3, dims, torch.float64, device=dev)
+    _, c64 = solve_window_batched(*p64, dims, iters=10)
+    for k in range(3):
+        row = [tree_map(lambda a: a[k].contiguous(), t) for t in p64[:4]]
+        _, c = solve_window(*row, *p64[4:], dims, iters=10)
+        assert abs(float(c64[k]) - float(c)) <= 1e-9 * float(c)
+
+
+def test_resolve_device_without_a_card_raises():
+    """`None` means the card: without one it raises, and so does every entry
+    point that resolves its device from None; the CPU is used only when the
+    caller says so."""
+    from isvins_tpu_torch.device import resolve_device
+    from isvins_tpu_torch.parallel import make_batch_problem, make_mesh
+    from isvins_tpu_torch.solver import WindowDims
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for call in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
+                 lambda: make_mesh(None),
+                 lambda: make_batch_problem(1, WindowDims(6, 3, 32, 64))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    prob = make_batch_problem(1, WindowDims(6, 3, 32, 64), device="cpu")
+    assert prob[0].P.device.type == "cpu"
+
+
+def test_entry_points_default_to_the_card_and_take_cpu(tmp_path):
+    """No entry point of the port defaults to the CPU: `device` is None (the
+    card) or a required argument; with device="cpu" each runs here."""
+    import inspect
+
+    import numpy as np
+
+    from isvins_tpu_torch.estimator.estimator import Estimator
+    from isvins_tpu_torch.estimator.feature_manager import FeatureManager
+    from isvins_tpu_torch.initial.pnp import pnp_ransac_gn
+    from isvins_tpu_torch.parallel import MultiSequenceSolver, make_batch_problem
+    from isvins_tpu_torch.posegraph.keyframe_db import KeyframeDB
+    from isvins_tpu_torch.utils.checkpoint import load_pose_graph
+
+    for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__):
+        assert inspect.signature(fn).parameters["device"].default is None, fn
+    assert inspect.signature(MultiSequenceSolver.__init__).parameters["devices"].default is None
+    for cls in (FeatureManager, KeyframeDB):
+        assert inspect.signature(cls.__init__).parameters["device"].default is inspect.Parameter.empty
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(5, 3)) + [0, 0, 5]
+    assert not pnp_ransac_gn(X, X[:, :2] / X[:, 2:], [1.0, 0, 0, 0], np.zeros(3), device="cpu")[0]
+    assert [d.type for d in MultiSequenceSolver(["cpu"]).devices] == ["cpu"]

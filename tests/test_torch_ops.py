@@ -55,7 +55,8 @@ def _imu_inputs(seed=0, B=10):
     from isvins_tpu_torch.parallel.sharded import make_batch_problem
     from isvins_tpu_torch.solver import WindowDims
 
-    state, imu, *_ = make_batch_problem(1, WindowDims(B, 4, 64, 256), torch.float32, seed=seed)
+    state, imu, *_ = make_batch_problem(1, WindowDims(B, 4, 64, 256), torch.float32, seed=seed,
+                                        device="cpu")
     rng = np.random.default_rng(seed)
     st = [getattr(state, k)[0] for k in ("P", "Q", "V", "Ba", "Bg")]
     st[3] = st[3] + T(rng.normal(size=(B, 3)).astype(np.float32) * 0.02)

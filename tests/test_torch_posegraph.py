@@ -116,7 +116,7 @@ def test_pnp_ransac_matches_reference():
     from isvins_tpu_torch.initial.pnp import pnp_gn, pnp_ransac_gn
 
     X, uv, q0, t0, q_true, t_true = _pnp_problem(np.random.default_rng(5))
-    ok, q, t, inl = pnp_ransac_gn(X, uv, q0, t0)
+    ok, q, t, inl = pnp_ransac_gn(X, uv, q0, t0, device="cpu")
     jok, jq, jt, jinl = j_ransac(X, uv, q0, t0)
     assert ok and jok
     np.testing.assert_array_equal(inl, jinl)
@@ -129,7 +129,7 @@ def test_pnp_ransac_matches_reference():
     for o, r in zip(ours, j_gn(X, uv, q0, t0, weights=w)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-9)
     # fewer than min_set matches: refused without a solve
-    assert not pnp_ransac_gn(X[:5], uv[:5], q0, t0)[0]
+    assert not pnp_ransac_gn(X[:5], uv[:5], q0, t0, device="cpu")[0]
 
 
 def _drifted_loop_db(KeyframeDB, n=40):
@@ -184,7 +184,7 @@ def test_optimize_matches_reference(tmp_path, async_dispatch):
     jdb = _drifted_loop_db(JDB)
     path = str(tmp_path / "pg.npz")
     save_pose_graph(jdb, path)
-    db = load_pose_graph(path)
+    db = load_pose_graph(path, device="cpu")
     assert db.n == jdb.n and db.K == jdb.K and db.vocab_frozen == jdb.vocab_frozen
     n = db.n
     out = optimize_pose_graph(db, 0, n - 1, iters=10, async_dispatch=async_dispatch)
@@ -278,7 +278,8 @@ def _run_builder(pkg, frames):
     camera = cam.PinholeRadtan.from_config(cfgm.CameraConfig(
         width=320, height=240, fx=200.0, fy=200.0, cx=160.0, cy=120.0,
         k1=0.0, k2=0.0, p1=0.0, p2=0.0))
-    builder = pgm.PoseGraphBuilder(cfg, camera=camera)
+    on_cpu = {"device": "cpu"} if pkg == "isvins_tpu_torch" else {}  # the JAX one has no such argument
+    builder = pgm.PoseGraphBuilder(cfg, camera=camera, **on_cpu)
     for fr in frames:
         pkt = marg.PoseGraphPacket(
             rel_dt=fr["rel_dt"], rel_dq=fr["rel_dq"], cov_rel=np.eye(6) * 1e-4,
@@ -357,7 +358,7 @@ def test_keyframe_db_grow_and_query_mirror(tmp_path):
     from isvins_tpu_torch.utils.checkpoint import load_pose_graph
 
     rng = np.random.default_rng(4)
-    db, jdb = KeyframeDB(4, 80, 8), JDB(4, 80, 8)
+    db, jdb = KeyframeDB(4, 80, 8, device="cpu"), JDB(4, 80, 8)
     base = rng.integers(0, 2**32, size=(80, 8), dtype=np.uint32)
     for i in range(11):
         kp = base.copy() if i % 3 == 0 else rng.integers(0, 2**32, size=(80, 8), dtype=np.uint32)
@@ -374,7 +375,7 @@ def test_keyframe_db_grow_and_query_mirror(tmp_path):
     assert db.match_count_queries == [10, 9, 9]  # (3, 5) has hi <= 0: nothing to score
     path = str(tmp_path / "db.npz")
     save_pose_graph(jdb, path)
-    loaded = load_pose_graph(path, capacity=32)
+    loaded = load_pose_graph(path, capacity=32, device="cpu")
     assert loaded.K == 32 and loaded.n == 11
     np.testing.assert_array_equal(loaded.ret_desc_dev[:11].numpy().view(np.uint32),
                                   jdb.ret_desc[:11])

@@ -41,7 +41,8 @@ def test_make_batch_problem_matches(dt):
     test_torch_factors.py."""
     dims = ts.WindowDims(B=6, Vo=3, F=32, N=64)
     jp = j_make_batch_problem(2, js.WindowDims(*dims), dtype=jnp.dtype(dt), seed=3)
-    tp = make_batch_problem(2, dims, torch.float64 if dt == np.float64 else torch.float32, seed=3)
+    tp = make_batch_problem(2, dims, torch.float64 if dt == np.float64 else torch.float32, seed=3,
+                            device="cpu")
     jl, tl = jax.tree_util.tree_leaves(jp), _leaves(tuple(tp))
     assert len(jl) == len(tl)
     tol = dict(rtol=1e-9, atol=1e-12) if dt == np.float64 else dict(rtol=2e-4, atol=2e-6)
