@@ -8,8 +8,14 @@ package). Every measurement is a process of its own that imports the
 package under one root, builds its kernels, and times `solve_window` on
 make_batch_problem(1, (18, 8, 1000, 3072), float32), 10 LM iterations:
 3 warm-ups, then 20 solves by the host clock around a synchronize, 20 more
-with Python's cyclic garbage collector off, then one solve under torch.profiler for the counts of host operators and device
-operations. The processes run interleaved, parent, change, change, parent per
+with Python's cyclic garbage collector off, then one solve under
+torch.profiler for the counts of host operators and device operations (the
+summary's `note` says by how much K3's cluster launch moves the latter),
+then the
+device times of K3, K7 and K4 at the product shapes: 100 calls of each
+wrapper captured in a CUDA graph and replayed between two events, so the
+kernels of two checkouts are compared in one call on one card. The
+processes run interleaved, parent, change, change, parent per
 two rounds, so that a host that slows down mid-call slows both. Printed:
 one JSON line per process, then one JSON line with each root's medians and
 the paired ratios; a first line per root gives its kernel build's seconds,
@@ -24,6 +30,43 @@ import json
 import subprocess
 import sys
 import time
+
+
+def graph_ms(fn, reps=100, replays=5) -> float:
+    """Median device time of fn() over replays of a CUDA graph of `reps` calls."""
+    import numpy as np
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def kernel_times(dev) -> dict:
+    """Graph-replay device ms of the root's K3, K7 and K4 wrappers on the
+    inputs of the root's own chip_smoke.kernel_inputs."""
+    import chip_smoke  # the root's: it is first on sys.path
+
+    from isvins_tpu_torch import ops
+
+    inp = chip_smoke.kernel_inputs(dev)
+    return {name: graph_ms(lambda: getattr(ops, name)(*inp[name]))
+            for name in ("schur_corr", "schur_reduce", "linstep")}
 
 
 def measure(root: str) -> dict:
@@ -69,16 +112,17 @@ def measure(root: str) -> dict:
     dev_time = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
         e, "self_cuda_time_total", 0)
     host_ops = {e.key: e.count for e in avgs if e.key.startswith("aten::")}
+    device_ops = {e.key: e.count for e in avgs if e.device_type.name == "CUDA" or dev_time(e) > 0}
     return {"root": root, "median_ms": float(np.median(times)), "min_ms": min(times),
             "times_ms": [round(t, 1) for t in times],
             "gc_off_median_ms": float(np.median(times_gc_off)),
             "gc_off_times_ms": [round(t, 1) for t in times_gc_off],
             "cost": float(cost), "build_s": _lib.build_info.get("seconds"),
             "host_ops": sum(host_ops.values()),
-            "device_ops": sum(e.count for e in avgs
-                              if e.device_type.name == "CUDA" or dev_time(e) > 0),
+            "device_ops": sum(device_ops.values()),
             "device_busy_ms": sum(dev_time(e) for e in avgs) / 1e3,
-            "host_op_counts": host_ops}
+            "kernel_graph_ms": kernel_times(dev),
+            "host_op_counts": host_ops, "device_op_counts": device_ops}
 
 
 def one_command_build(root: str) -> float:
@@ -113,7 +157,7 @@ def main():
                                  capture_output=True, text=True, check=True).stdout
             rec = json.loads(next(l for l in out.splitlines() if l.startswith("AB "))[3:])
             runs[root].append(rec)
-            print(json.dumps({k: v for k, v in rec.items() if k != "host_op_counts"}))
+            print(json.dumps({k: v for k, v in rec.items() if not k.endswith("_op_counts")}))
     med = lambda xs: sorted(xs)[len(xs) // 2] if len(xs) % 2 else sum(sorted(xs)[len(xs) // 2 - 1:
                                                                                  len(xs) // 2 + 1]) / 2
     summary = {name: {"medians_ms": [r["median_ms"] for r in runs[root]],
@@ -123,13 +167,24 @@ def main():
                       "host_ops": runs[root][0]["host_ops"],
                       "device_ops": runs[root][0]["device_ops"],
                       "device_busy_ms": med([r["device_busy_ms"] for r in runs[root]]),
+                      "kernel_graph_ms": {k: [r["kernel_graph_ms"][k] for r in runs[root]]
+                                          for k in runs[root][0]["kernel_graph_ms"]},
                       "first_build_s": runs[root][0]["build_s"]}
                for name, root in (("parent", parent), ("change", change))}
-    a, b = runs[parent][0]["host_op_counts"], runs[change][0]["host_op_counts"]
-    diff = {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)}
-    summary["host_op_count_diff_top"] = dict(sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:10])
+    for kind in ("host", "device"):
+        a, b = (runs[root][0][f"{kind}_op_counts"] for root in (parent, change))
+        diff = {k[:120]: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)}
+        summary[f"{kind}_op_count_diff_top"] = dict(
+            sorted(((k, v) for k, v in diff.items() if v), key=lambda kv: -abs(kv[1]))[:10])
     summary["paired_ratio_change_over_parent"] = [
         c["median_ms"] / p["median_ms"] for p, c in zip(runs[parent], runs[change])]
+    summary["note"] = (
+        "device_ops counts the profiler's device-side records, CUDA runtime calls included. "
+        "K3 (schur_corr) is one kernel per LM iteration before and after its redesign; as a "
+        "thread block cluster it goes through cudaLaunchKernelEx and two cudaFuncSetAttribute "
+        "calls, so against a checkout with the old K3 device_ops moves by +151 per 10-iteration "
+        "solve (cudaLaunchKernelExC +131, cudaFuncSetAttribute +30, cudaLaunchKernel -10) and "
+        "the kernels on the card by 0. kernel_graph_ms: graph-replay device ms per call.")
     print(json.dumps({"card": smi, "summary": summary}))
 
 

@@ -39,11 +39,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SIGNATURES = {
     "isv_proj_rows": "p" * 14 + "ii",
     "isv_imu_rows": "p" * 20 + "ii",
-    "isv_schur_corr": "p" * 6 + "ii",
+    "isv_schur_corr": "p" * 6 + "i" * 6,
     "isv_linstep_solve": "p" * 10 + "iiii",
     "isv_chol_solve_batched": "ppp" + "ii",
     "isv_retrieval_scores": "p" * 5 + "ii",
-    "isv_schur_reduce": "pppp" + "ii",
+    "isv_schur_reduce": "p" * 7 + "i" * 6,
+    "isv_noop": "",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

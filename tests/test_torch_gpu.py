@@ -78,10 +78,88 @@ def test_wrappers_raise_on_bad_cuda_input():
         ops.proj_rows(x, x, x, x[:, :3], x, x, x[0], x[0], x[:, 0], x[:, 0] > 0)
     W = torch.zeros((4, 50), dtype=torch.float32, device=dev).T  # not contiguous
     h = torch.ones(50, dtype=torch.float32, device=dev)
+    before = ops.schur_corr.launches
     with pytest.raises(ValueError):
         ops.schur_corr(W, h, h)
     with pytest.raises(ValueError):  # wrong shape
         ops.schur_corr(W.contiguous(), h[:10], h)
+    assert ops.schur_corr.launches == before
+
+
+# (F, n): the product shapes of K3 and K7, the small windows' widths, shapes
+# below a tile, a chunk of rows and the split count, an odd n (4-byte copies)
+SCHUR_SHAPES = [(1000, 114), (1000, 276), (256, 66), (50, 30), (3, 7), (1, 1), (37, 276)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,n", SCHUR_SHAPES)
+def test_schur_kernels_shapes_repeat_and_symmetry_on_card(F, n):
+    """K3 (as called alone and, with lam, as K4 launches it) and K7 against
+    their plain versions (rtol 2e-5, atol 2e-3) with one empty landmark where
+    the guard applies; two runs give the same bits; C and, for a symmetric
+    H, H_s equal their transposes exactly; a W that starts off a 16-byte
+    boundary (narrower copies) gives the same bits."""
+    dev = _card()
+    from isvins_tpu_torch.ops import schur
+
+    rng = np.random.default_rng(1000 * F + n)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    W, b_l = f32(rng.normal(size=(F, n))), f32(rng.normal(size=F))
+    h = f32(np.abs(rng.normal(size=F)) + 0.1)
+    h0 = h.clone()
+    h0[F // 2] = 0.0
+    A = rng.normal(size=(n, n))
+    H, b = f32(A + A.T), f32(rng.normal(size=n))
+    lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    h_d = h0 * (1.0 + lam)
+    shifted = torch.empty(F * n + 1, dtype=torch.float32, device=dev)[1:].view(F, n)
+    shifted.copy_(W)
+    assert schur._alignment(shifted) == 4
+    runs = [
+        (lambda w=W: ops.schur_corr(w, h, b_l), ops.schur_corr_ref(W, h, b_l)),
+        (lambda w=W: schur._launch(w, h0, b_l, lam),
+         ops.schur_corr_ref(W, torch.where(h_d > 1e-12, h_d, torch.ones_like(h_d)), b_l)),
+        (lambda w=W: ops.schur_reduce(H, b, w, h0, b_l), ops.schur_reduce_ref(H, b, W, h0, b_l)),
+    ]
+    for run, ref in runs:
+        before = ops.schur_corr.launches + ops.schur_reduce.launches
+        out, again, off = run(), run(), run(shifted)
+        torch.cuda.synchronize()
+        assert ops.schur_corr.launches + ops.schur_reduce.launches == before + 3
+        for o, r, o2, o3 in zip(out, ref, again, off):
+            torch.testing.assert_close(o, r, rtol=2e-5, atol=2e-3)
+            assert torch.equal(o, o2) and torch.equal(o, o3)
+        assert torch.equal(out[0], out[0].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F", [(4, 50), (18, 1000)])
+def test_linstep_step_on_card(B, F):
+    """The K4 step (K3 with lam, then the factorization) at a small window
+    and at the product window: within 2e-3 of the largest entry, rtol 2e-3
+    (tests/test_pallas_ops.py:157-162), SPD inputs built as there."""
+    dev = _card()
+    rng = np.random.default_rng(B)
+    n_pose, D = 6 * B, 15 * B + 6
+    Dr, ex0 = n_pose + 6, 15 * B
+    Ah = rng.normal(size=(D, D + 60))
+    H = Ah @ Ah.T + 200 * np.eye(D)
+    W = rng.normal(size=(F, Dr)).astype(np.float32)
+    h = (np.abs(rng.normal(size=F)) * 5 + 0.5).astype(np.float32)
+    C = (W / h[:, None]).T @ W
+    H[:n_pose, :n_pose] += C[:n_pose, :n_pose]
+    H[:n_pose, ex0:] += C[:n_pose, n_pose:]
+    H[ex0:, :n_pose] += C[n_pose:, :n_pose]
+    H[ex0:, ex0:] += C[n_pose:, n_pose:]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    args = (f32(H), f32(rng.normal(size=D)), f32(W), f32(h), f32(rng.normal(size=F)),
+            torch.tensor(1e-3, dtype=torch.float32, device=dev), n_pose)
+    before = ops.linstep.launches, ops.schur_corr.launches
+    out = ops.linstep(*args)
+    torch.cuda.synchronize()
+    assert (ops.linstep.launches, ops.schur_corr.launches) == (before[0] + 1, before[1] + 1)
+    for o, r in zip(out, ops.linstep_ref(*args, D)):
+        torch.testing.assert_close(o, r, rtol=2e-3, atol=2e-3 * float(r.abs().max()))
 
 
 @pytest.mark.gpu
