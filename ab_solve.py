@@ -11,13 +11,14 @@ make_batch_problem(1, (18, 8, 1000, 3072), float32), 10 LM iterations:
 with Python's cyclic garbage collector off, then one solve under
 torch.profiler for the counts of host operators and device operations (the
 summary's `note` says by how much K3's cluster launch moves the latter),
-then the
-device times of K3, K7 and K4 at the product shapes: 100 calls of each
-wrapper captured in a CUDA graph and replayed between two events, so the
-kernels of two checkouts are compared in one call on one card. The
+then the device times of K3, K7, K4 and K5 (NB = 1 and 16) at the product
+shapes: 100 calls of each wrapper captured in a CUDA graph and replayed
+between two events, so the kernels of two checkouts are compared in one
+call on one card. The
 processes run interleaved, parent, change, change, parent per
 two rounds, so that a host that slows down mid-call slows both. Printed:
-one JSON line per process, then one JSON line with each root's medians and
+one JSON line per process, a line per root with its device busy ms per
+solve and kernel times, then one JSON line with each root's medians and
 the paired ratios; a first line per root gives its kernel build's seconds,
 and for the change also the seconds of the same sources built by ONE nvcc
 command (what the build did before it compiled the sources in parallel).
@@ -59,14 +60,19 @@ def graph_ms(fn, reps=100, replays=5) -> float:
 
 def kernel_times(dev) -> dict:
     """Graph-replay device ms of the root's K3, K7 and K4 wrappers on the
-    inputs of the root's own chip_smoke.kernel_inputs."""
+    inputs of the root's own chip_smoke.kernel_inputs, and of its K5 at
+    NB = 1 and 16 on chip_smoke.chol_inputs."""
     import chip_smoke  # the root's: it is first on sys.path
 
     from isvins_tpu_torch import ops
 
     inp = chip_smoke.kernel_inputs(dev)
-    return {name: graph_ms(lambda: getattr(ops, name)(*inp[name]))
-            for name in ("schur_corr", "schur_reduce", "linstep")}
+    out = {name: graph_ms(lambda: getattr(ops, name)(*inp[name]))
+           for name in ("schur_corr", "schur_reduce", "linstep")}
+    for NB in (1, 16):
+        H, b = chip_smoke.chol_inputs(dev, NB)
+        out[f"chol_solve_batched_NB{NB}"] = graph_ms(lambda: ops.chol_solve_batched(H, b))
+    return out
 
 
 def measure(root: str) -> dict:
@@ -185,6 +191,9 @@ def main():
         "calls, so against a checkout with the old K3 device_ops moves by +151 per 10-iteration "
         "solve (cudaLaunchKernelExC +131, cudaFuncSetAttribute +30, cudaLaunchKernel -10) and "
         "the kernels on the card by 0. kernel_graph_ms: graph-replay device ms per call.")
+    for name in ("parent", "change"):
+        print(f"{name}: device busy {summary[name]['device_busy_ms']:.3f} ms per solve (median "
+              f"over processes); graph-replay ms {summary[name]['kernel_graph_ms']}")
     print(json.dumps({"card": smi, "summary": summary}))
 
 

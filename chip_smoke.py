@@ -15,7 +15,11 @@ exits non-zero:
                4096; K7 with an empty landmark; K3 and K7 also at the
                small and ragged shapes of SCHUR_SHAPES, K3 with and
                without lam, both twice with equal bits and an exactly
-               symmetric C);
+               symmetric C; K4 and K5 also at D = 66 and 141, twice with
+               equal bits, with a bad pivot at columns 0, 100 and D - 1,
+               and ops.chol_plan held against the C++ geometry; K4's
+               chain alone timed as cholesky_solve(cholesky_ex) on its
+               own H_dd, `chain_library_ms`);
                device times of kernel, plain version and, where one
                PyTorch call computes the same function, that call: 100
                calls captured in a CUDA graph, replayed between two events
@@ -522,6 +526,124 @@ def kernel_cases(dev):
     return inp, cases
 
 
+def chol_plan_check(dev, widths=(66, 141, 276)):
+    """ops.chol_plan (Python) and chol_plan of csrc/chol.cuh (C++, through
+    isv_chol_plan) must give the same layout for every D this script runs."""
+    import torch
+
+    from isvins_tpu_torch.ops import _lib
+    from isvins_tpu_torch.ops.chol_batched import chol_plan
+
+    for D in widths:
+        out = torch.zeros(4, dtype=torch.int32)
+        _lib.launch("isv_chol_plan", D, out, device=dev)
+        if tuple(out.tolist()) != tuple(chol_plan(D)):
+            raise AssertionError(f"chol_plan({D}): C++ {out.tolist()} != Python {chol_plan(D)}")
+    print(f"[kernels] chol_plan: Python and C++ agree at D = {widths}: "
+          f"{[tuple(chol_plan(D)) for D in widths]} (nb, Dp, tiles, smem_bytes)")
+
+
+def small_linstep_inputs(dev, B, F, seed=0):
+    """K4 inputs at a small window (D = 15 B + 6), SPD as kernel_inputs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + B)
+    n_pose, D = 6 * B, 15 * B + 6
+    Dr, ex0 = n_pose + 6, 15 * B
+    A = rng.normal(size=(D, D + 60))
+    H = A @ A.T + 200 * np.eye(D)
+    W = rng.normal(size=(F, Dr)).astype(np.float32)
+    h = (np.abs(rng.normal(size=F)) * 5 + 0.5).astype(np.float32)
+    C = (W / h[:, None]).T @ W
+    H[:n_pose, :n_pose] += C[:n_pose, :n_pose]
+    H[:n_pose, ex0:] += C[:n_pose, n_pose:]
+    H[ex0:, :n_pose] += C[n_pose:, :n_pose]
+    H[ex0:, ex0:] += C[n_pose:, n_pose:]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (f32(H), f32(rng.normal(size=D)), f32(W), f32(h), f32(rng.normal(size=F)),
+            torch.tensor(1e-3, dtype=torch.float32, device=dev), n_pose)
+
+
+def chol_checks(dev, cases):
+    """The blocked Cholesky routine of K4 and K5 beyond the product shapes:
+    the plan against the C++ geometry; K5 (four systems) and K4 at D = 66
+    and 141 (B = 4 and 9; 141 is not a multiple of the tile) against their
+    plain versions, twice with equal bits; a pivot that is not > 0 at column
+    0, 100 and D - 1: K5 gives that system a NaN row and the others their
+    bits, K4 gives NaN dx and dl."""
+    import torch
+
+    from isvins_tpu_torch import ops
+
+    chol_plan_check(dev)
+    _, _, k5_rtol, k5_atol = cases["chol_solve_batched"]
+    _, _, k4_rtol, k4_atol = cases["linstep"]
+    errs = []
+    for B, F in ((4, 50), (9, 200)):
+        D = 15 * B + 6
+        H, b = chol_inputs(dev, 4, D=D)
+        x, ref = ops.chol_solve_batched(H, b), ops.chol_solve_batched_ref(H, b)
+        _assert_close(f"chol_solve_batched D={D}", (x,), (ref,), k5_rtol, k5_atol)
+        a = small_linstep_inputs(dev, B, F)
+        out, ref4 = ops.linstep(*a), ops.linstep_ref(*a, D)
+        _assert_close(f"linstep D={D}", out, ref4, k4_rtol, k4_atol)
+        if not (torch.equal(ops.chol_solve_batched(H, b), x)
+                and all(torch.equal(o, o2) for o, o2 in zip(ops.linstep(*a), out))):
+            raise AssertionError(f"K4 or K5 at D={D}: two runs differ")
+        errs.append(f"D={D}: K5 {_max_err((x,), (ref,)):.3g}, K4 {_max_err(out, ref4):.3g}")
+    print(f"[kernels] K5 (NB = 4) and K4 at small windows, max abs err {'; '.join(errs)}; "
+          "repeat bit for bit")
+    H, b = chol_inputs(dev, 8)
+    good = ops.chol_solve_batched(H, b)
+    lin = small_linstep_inputs(dev, 18, 1000)
+    D, keep = H.shape[-1], [n for n in range(8) if n != 3]
+    for col in (0, 100, D - 1):
+        Hb = H.clone()
+        Hb[3, col, col] = -1.0
+        x = ops.chol_solve_batched(Hb, b)
+        Hl = lin[0].clone()
+        Hl[col, col] = -1e6
+        dx, dl = ops.linstep(Hl, *lin[1:])
+        torch.cuda.synchronize()
+        if not bool(torch.isnan(x[3]).all()) or not torch.equal(x[keep], good[keep]):
+            raise AssertionError(f"chol_solve_batched: a bad pivot at column {col} must give "
+                                 "one NaN row and leave the others' bits")
+        if not (bool(torch.isnan(dx).all()) and bool(torch.isnan(dl).all())):
+            raise AssertionError(f"linstep: a bad pivot at column {col} must give NaN dx, dl")
+    print("[kernels] a bad pivot at column 0, 100 and D - 1: K5 gives that system a NaN row "
+          "and the other seven their bits; K4 gives NaN dx and dl")
+
+
+def linstep_chain_library(args):
+    """The library time of K4's chain alone: cholesky_solve(b_s,
+    cholesky_ex(H_dd)[0]) on K4's own damped system (H_dd, b_s formed here
+    as linstep_ref forms them; K4 also runs K3 and dl, which this leaves
+    out)."""
+    import torch
+
+    from isvins_tpu_torch import ops
+
+    H, b, W, h, b_l, lam, n_pose = args
+    D, Dr = H.shape[0], W.shape[1]
+    ex0 = D - (Dr - n_pose)
+    h_d = h * (1.0 + lam)
+    C, c_b = ops.schur_corr_ref(W, torch.where(h_d > 1e-12, h_d, torch.ones_like(h_d)), b_l)
+    red = torch.cat([torch.arange(n_pose), torch.arange(ex0, D)]).to(H.device)
+    H_dd, b_s = H.clone(), b.clone()
+    H_dd[red[:, None], red[None, :]] -= C
+    b_s[red] -= c_b
+    d = torch.diagonal(H_dd)
+    d += lam * torch.clamp(torch.diagonal(H), min=1e-8)
+    d += 1e-12 * d.sum() / D
+    ms, how = graph_or_eager_ms(
+        lambda: torch.cholesky_solve(b_s[:, None], torch.linalg.cholesky_ex(H_dd)[0]), 100,
+        "K4's chain library call")
+    print(f"[kernels] linstep: library call for its chain alone (cholesky_solve(b_s, "
+          f"cholesky_ex(H_dd)[0]) on K4's own H_dd): {ms * 1e3:.2f} us ({how})")
+    return {"chain_library_ms": ms, "chain_library_timing": how}
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the same card inputs."""
     import torch
@@ -541,14 +663,8 @@ def phase_kernels(dev):
         print(f"[kernels] chol_solve_batched NB={NB}:")
         _measure("chol_solve_batched", *cases["chol_solve_batched"][:2], chol_inputs(dev, NB),
                  *cases["chol_solve_batched"][2:])
-    H, b = (a.clone() for a in chol_inputs(dev, 8))
-    good = ops.chol_solve_batched(H, b)
-    H[3, 40, 40] = -1.0
-    x = ops.chol_solve_batched(H, b)
-    torch.cuda.synchronize()
-    keep = [n for n in range(8) if n != 3]
-    if not bool(torch.isnan(x[3]).all()) or not torch.equal(x[keep], good[keep]):
-        raise AssertionError("chol_solve_batched: a non-SPD system must give one NaN row")
+    chol_checks(dev, cases)
+    records["linstep"].update(linstep_chain_library(inp["linstep"]))
     # K1 and K2 at the batched paths' flattened rows: the coordinated
     # estimators' sequences and the bare windows', each sequence with its own
     # extrinsic and gravity

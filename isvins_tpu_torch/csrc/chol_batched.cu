@@ -9,54 +9,62 @@
 // TPU kernel advances all NB problems in one program, the batch riding the
 // sublanes; a GPU has 132 SMs, so here every problem gets its own thread
 // block and the NB factorizations run side by side on NB SMs (one block per
-// SM: 156,216 B of dynamic shared memory at D = 276). Each block copies the
-// lower triangle of its H into packed shared memory, runs the routines of
-// chol.cuh (shared with K4) and writes its x.
+// SM: 177,664 B of dynamic shared memory at D = 276 in tiles of 16). Each
+// block copies its H into the tiles of chol.cuh (shared with K4) with
+// identity padding, factors and solves, and writes its x.
 //
 // A pivot that is not > 0 (H[n] not SPD, or NaN) makes x[n] all NaN, as the
 // plain version does, so the LM accept test rejects that sequence's step;
 // the other problems of the batch are untouched.
 //
-// What bounds it on the H100: per block the chain of D dependent column
-// steps (two barriers each), not flops (NB (D^3/3 + 2 D^2)) or bytes.
+// What bounds it on the H100: per block the chain of D / nb panel steps
+// (the panel and the trailing update spread over the warps, the next
+// diagonal tile factored by one warp beside them, two barriers each) and
+// the SM's shared-memory bandwidth beside ~D^3/6 FMAs; not flops
+// (NB (D^3/3 + 2 D^2)) or device memory.
 #include "chol.cuh"
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(CHOL_THREADS)
     chol_solve_batched_kernel(const float* __restrict__ H, const float* __restrict__ b,
                               float* __restrict__ x, int D) {
-  extern __shared__ float sm[];
-  float* A = sm;            // packed lower triangle, D(D+1)/2
-  float* col = A + tri(D);  // scratch column, D
-  float* vec = col + D;     // b -> y -> x, D
-  float* ldiag = vec + D;   // diag of L, D
-  __shared__ int bad;
+  extern __shared__ __align__(16) float sm[];
+  const CholPlan plan = chol_plan(D);
+  float* tiles = sm;
+  float* vec = tiles + plan.tiles * CHOL_NB * CHOL_NB;  // b -> y -> x, Dp
+  int* bad = reinterpret_cast<int*>(vec + 2 * plan.Dp);  // after the unused aux vector
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const float* Hn = H + (size_t)blockIdx.x * D * D;
   const float* bn = b + (size_t)blockIdx.x * D;
   float* xn = x + (size_t)blockIdx.x * D;
 
-  for (int i = warp; i < D; i += nw) {
-    float* Ai = A + tri(i);
-    for (int k = lane; k <= i; k += 32) Ai[k] = Hn[(size_t)i * D + k];
-  }
-  for (int i = tid; i < D; i += nt) vec[i] = bn[i];
-  if (tid == 0) bad = 0;
+  chol_fill(tiles, plan.T, D, [&](int a, int k) { return Hn[(size_t)a * D + k]; });
+  for (int i = tid; i < plan.Dp; i += nt) vec[i] = i < D ? bn[i] : 0.0f;
+  if (tid == 0) *bad = 0;
   __syncthreads();
 
-  chol_factor_packed(A, col, ldiag, &bad, D);
-  if (!bad && warp == 0) chol_solve_packed(A, ldiag, vec, D);
-  __syncthreads();
-  for (int i = tid; i < D; i += nt) xn[i] = bad ? nanf("") : vec[i];
+  chol_factor_tiles(tiles, plan.T, bad);
+  if (!*bad) chol_solve_tiles(tiles, vec, plan.T);
+  for (int i = tid; i < D; i += nt) xn[i] = *bad ? nanf("") : vec[i];
 }
 
 ISV_EXPORT int isv_chol_solve_batched(const float* H, const float* b, float* x, int NB, int D,
                                       void* stream) {
-  const int smem = chol_smem_bytes(D);
+  const int smem = chol_plan(D).smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       chol_solve_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chol_solve_batched_kernel<<<NB, 1024, smem, (cudaStream_t)stream>>>(H, b, x, D);
+  chol_solve_batched_kernel<<<NB, CHOL_THREADS, smem, (cudaStream_t)stream>>>(H, b, x, D);
   return (int)cudaGetLastError();
+}
+
+// The layout chol_plan gives D, as four ints (nb, Dp, tiles, smem_bytes)
+// into `out` (host memory), for the check that the Python plan is the same.
+// Launches nothing; the stream argument, which every entry point takes, is
+// unused.
+ISV_EXPORT int isv_chol_plan(int D, int* out, void* stream) {
+  (void)stream;
+  const CholPlan p = chol_plan(D);
+  out[0] = p.nb, out[1] = p.Dp, out[2] = p.tiles, out[3] = p.smem_bytes;
+  return 0;
 }

@@ -21,10 +21,12 @@
 // A pivot that is not > 0 (H_dd not SPD) makes dx all NaN, as
 // jnp.linalg.cholesky does, so the LM accept test rejects the step.
 //
-// What bounds it on the H100: the factorization's sequential chain, not
-// flops or bytes (~7 MFLOP, 0.3 MB of H). The block keeps the packed lower
-// triangle in dynamic shared memory and runs the factorization and the two
-// triangular solves of chol.cuh, which K5 (chol_batched.cu) shares.
+// What bounds it on the H100: the factorization's chain of dependent steps,
+// not flops or bytes (~7 MFLOP, 0.3 MB of H). The block writes H_dd
+// straight into the tiles of chol.cuh (blocked Cholesky: 18 panels of 16 at
+// D = 276, two barriers each, register-tiled trailing updates, the next
+// diagonal tile factored ahead; solves by tile rows in one warp), the
+// routine K5 (chol_batched.cu) shares.
 #include "chol.cuh"
 
 __device__ __forceinline__ int reduced_index(int i, int n_pose, int ex0) {
@@ -33,69 +35,63 @@ __device__ __forceinline__ int reduced_index(int i, int n_pose, int ex0) {
   return -1;
 }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(CHOL_THREADS)
     linstep_chol_kernel(const float* __restrict__ H, const float* __restrict__ b,
                         const float* __restrict__ C, const float* __restrict__ cb,
                         const float* __restrict__ lam, float* __restrict__ dx, int D,
                         int n_pose, int Dr) {
-  extern __shared__ float sm[];
-  float* A = sm;              // packed lower triangle, D(D+1)/2
-  float* col = A + tri(D);    // current scaled column / scratch, D
-  float* vec = col + D;       // b_s -> y -> dx, D
-  float* ldiag = vec + D;     // diag of L, D
-  __shared__ float red[32];
-  __shared__ float s_tr;
-  __shared__ int bad;
+  extern __shared__ __align__(16) float sm[];
+  const CholPlan plan = chol_plan(D);
+  float* tiles = sm;
+  float* vec = tiles + plan.tiles * CHOL_NB * CHOL_NB;  // b_s -> y -> dx, Dp
+  float* aux = vec + plan.Dp;                           // damped diagonal, Dp
+  float* red = aux + plan.Dp;                           // 32 warp sums
+  float* s_tr = red + 32;
+  int* bad = reinterpret_cast<int*>(s_tr + 1);
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const float lamv = *lam;
   const int ex0 = D - (Dr - n_pose);
 
-  // damped diagonal of H_s and b_s; trace of H_d
+  // damped diagonal of H_s and b_s (zero in the padding); trace of H_d
   float part = 0.0f;
-  for (int i = tid; i < D; i += nt) {
+  for (int i = tid; i < plan.Dp; i += nt) {
+    if (i >= D) {
+      vec[i] = 0.0f;
+      continue;
+    }
     const int ri = reduced_index(i, n_pose, ex0);
     const float hii = H[i * D + i];
     const float hs = hii - (ri >= 0 ? C[ri * Dr + ri] : 0.0f);
     const float dd = hs + lamv * fmaxf(hii, 1e-8f);
-    col[i] = dd;
+    aux[i] = dd;
     part += dd;
     vec[i] = b[i] - (ri >= 0 ? cb[ri] : 0.0f);
   }
   part = warp_sum(part);
   if (lane == 0) red[warp] = part;
-  if (tid == 0) bad = 0;
+  if (tid == 0) *bad = 0;
   __syncthreads();
   if (warp == 0) {
     float s = lane < nw ? red[lane] : 0.0f;
     s = warp_sum(s);
-    if (lane == 0) s_tr = s;
+    if (lane == 0) *s_tr = s;
   }
   __syncthreads();
-  const float jit = 1e-12f * s_tr / (float)D;
+  const float jit = 1e-12f * *s_tr / (float)D;
 
-  // H_dd lower triangle into shared memory
-  for (int i = warp; i < D; i += nw) {
-    const int ri = reduced_index(i, n_pose, ex0);
-    float* Ai = A + tri(i);
-    for (int k = lane; k <= i; k += 32) {
-      float v;
-      if (k == i) {
-        v = col[i] + jit;
-      } else {
-        const int rk = reduced_index(k, n_pose, ex0);
-        v = H[i * D + k] - ((ri >= 0 && rk >= 0) ? C[ri * Dr + rk] : 0.0f);
-      }
-      Ai[k] = v;
-    }
-  }
+  // H_dd into the tiles
+  chol_fill(tiles, plan.T, D, [&](int a, int k) {
+    if (a == k) return aux[a] + jit;
+    const int ra = reduced_index(a, n_pose, ex0), rk = reduced_index(k, n_pose, ex0);
+    return H[a * D + k] - ((ra >= 0 && rk >= 0) ? C[ra * Dr + rk] : 0.0f);
+  });
   __syncthreads();
 
-  chol_factor_packed(A, col, ldiag, &bad, D);
-  if (!bad && warp == 0) chol_solve_packed(A, ldiag, vec, D);
-  __syncthreads();
-  for (int i = tid; i < D; i += nt) dx[i] = bad ? nanf("") : vec[i];
+  chol_factor_tiles(tiles, plan.T, bad);
+  if (!*bad) chol_solve_tiles(tiles, vec, plan.T);
+  for (int i = tid; i < D; i += nt) dx[i] = *bad ? nanf("") : vec[i];
 }
 
 __global__ void linstep_dl_kernel(const float* __restrict__ W, const float* __restrict__ h,
@@ -125,17 +121,16 @@ ISV_EXPORT int isv_linstep_solve(const float* H, const float* b, const float* C,
                                  const float* W, const float* h, const float* bl,
                                  const float* lam, float* dx, float* dl, int D, int F, int Dr,
                                  int n_pose, void* stream) {
-  const int smem = chol_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      linstep_chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = chol_plan(D).smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(linstep_chol_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  linstep_chol_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(H, b, C, cb, lam, dx, D, n_pose,
-                                                              Dr);
+  linstep_chol_kernel<<<1, CHOL_THREADS, smem, st>>>(H, b, C, cb, lam, dx, D, n_pose, Dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const int blocks = (F * 32 + threads - 1) / threads;
-  linstep_dl_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(W, h, bl, lam, dx, dl, F, Dr,
-                                                                  n_pose, D);
+  linstep_dl_kernel<<<blocks, threads, 0, st>>>(W, h, bl, lam, dx, dl, F, Dr, n_pose, D);
   return (int)cudaGetLastError();
 }

@@ -22,8 +22,8 @@ import torch
 
 from ..factors.preintegration import cholesky_nan
 from . import schur
-from ._lib import SMEM_LIMIT, check, launch
-from .chol_batched import chol_solve_batched, chol_solve_batched_ref
+from ._lib import check, launch
+from .chol_batched import checked_plan, chol_solve_batched, chol_solve_batched_ref
 
 
 def linstep_ref(H, b, W, h, b_l, lam, n_pose, D):
@@ -70,9 +70,7 @@ def linstep(H, b, W, h, b_l, lam, n_pose: int):
     check(lam, "lam", (), device=dev)
     if not 0 < n_pose <= Dr <= D:
         raise ValueError(f"linstep: bad layout n_pose={n_pose} Dr={Dr} D={D}")
-    smem = (D * (D + 1) // 2 + 3 * D) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"linstep: D={D} needs {smem} B of shared memory > {SMEM_LIMIT}")
+    checked_plan(D, "linstep")
     C, c_b = schur._launch(W, h, b_l, lam)
     dx = torch.empty((D,), dtype=torch.float32, device=dev)
     dl = torch.empty((F,), dtype=torch.float32, device=dev)

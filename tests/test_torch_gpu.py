@@ -133,33 +133,32 @@ def test_schur_kernels_shapes_repeat_and_symmetry_on_card(F, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,F", [(4, 50), (18, 1000)])
+@pytest.mark.parametrize("B,F", [(4, 50), (9, 200), (18, 1000)])
 def test_linstep_step_on_card(B, F):
-    """The K4 step (K3 with lam, then the factorization) at a small window
-    and at the product window: within 2e-3 of the largest entry, rtol 2e-3
-    (tests/test_pallas_ops.py:157-162), SPD inputs built as there."""
+    """The K4 step (K3 with lam, then the blocked factorization) at D = 66,
+    141 (not a multiple of the tile) and the product window's 276: within
+    2e-3 of the largest entry, rtol 2e-3 (tests/test_pallas_ops.py:157-162),
+    SPD inputs built as there (chip_smoke.small_linstep_inputs); two runs
+    give the same bits; a pivot that is not > 0 at the first column, inside
+    the sixth panel or at the last makes dx and dl all NaN."""
     dev = _card()
-    rng = np.random.default_rng(B)
-    n_pose, D = 6 * B, 15 * B + 6
-    Dr, ex0 = n_pose + 6, 15 * B
-    Ah = rng.normal(size=(D, D + 60))
-    H = Ah @ Ah.T + 200 * np.eye(D)
-    W = rng.normal(size=(F, Dr)).astype(np.float32)
-    h = (np.abs(rng.normal(size=F)) * 5 + 0.5).astype(np.float32)
-    C = (W / h[:, None]).T @ W
-    H[:n_pose, :n_pose] += C[:n_pose, :n_pose]
-    H[:n_pose, ex0:] += C[:n_pose, n_pose:]
-    H[ex0:, :n_pose] += C[n_pose:, :n_pose]
-    H[ex0:, ex0:] += C[n_pose:, n_pose:]
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    args = (f32(H), f32(rng.normal(size=D)), f32(W), f32(h), f32(rng.normal(size=F)),
-            torch.tensor(1e-3, dtype=torch.float32, device=dev), n_pose)
+    import chip_smoke
+
+    args = chip_smoke.small_linstep_inputs(dev, B, F)
+    D = 15 * B + 6
     before = ops.linstep.launches, ops.schur_corr.launches
     out = ops.linstep(*args)
     torch.cuda.synchronize()
     assert (ops.linstep.launches, ops.schur_corr.launches) == (before[0] + 1, before[1] + 1)
     for o, r in zip(out, ops.linstep_ref(*args, D)):
         torch.testing.assert_close(o, r, rtol=2e-3, atol=2e-3 * float(r.abs().max()))
+    assert all(torch.equal(o, o2) for o, o2 in zip(out, ops.linstep(*args)))
+    for col in (0, min(100, D - 1), D - 1):
+        Hb = args[0].clone()
+        Hb[col, col] = -1e6
+        dx, dl = ops.linstep(Hb, *args[1:])
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(dx).all()) and bool(torch.isnan(dl).all()), col
 
 
 @pytest.mark.gpu
@@ -244,7 +243,8 @@ def test_chol_solve_batched_on_card(NB):
     """K5 at D = 276: one launch for the whole batch, counted once, equal to
     its plain version within the batched step's bound of the reference
     (tests/test_pallas_ops.py:176-184: 2e-3 of the largest entry, rtol
-    2e-3); a system that is not SPD gives a NaN row and leaves the others."""
+    2e-3); two runs give the same bits; a system whose pivot is not > 0 at
+    column 0, 100 or D - 1 gives a NaN row and leaves the others' bits."""
     dev = _card()
     import chip_smoke
 
@@ -256,12 +256,44 @@ def test_chol_solve_batched_on_card(NB):
     ref = ops.chol_solve_batched_ref(H, b)
     assert x.shape == (NB, D)
     torch.testing.assert_close(x, ref, rtol=2e-3, atol=2e-3 * float(ref.abs().max()))
-    H = H.clone()
-    H[NB - 1, 100, 100] = -1.0
-    bad = ops.chol_solve_batched(H, b)
-    torch.cuda.synchronize()
-    assert bool(torch.isnan(bad[NB - 1]).all())
-    assert torch.equal(bad[: NB - 1], x[: NB - 1])
+    assert torch.equal(ops.chol_solve_batched(H, b), x)
+    for col in (0, 100, D - 1):
+        Hb = H.clone()
+        Hb[NB - 1, col, col] = -1.0
+        bad = ops.chol_solve_batched(Hb, b)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(bad[NB - 1]).all()), col
+        assert torch.equal(bad[: NB - 1], x[: NB - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [66, 141])
+def test_chol_solve_batched_small_windows_on_card(D):
+    """K5 at the small windows' widths (B = 4 and 9; 141 is not a multiple
+    of the tile), four systems, against its plain version (2e-3 of the
+    largest entry, rtol 2e-3), bit for bit on a second run."""
+    dev = _card()
+    import chip_smoke
+
+    H, b = chip_smoke.chol_inputs(dev, 4, D=D)
+    x = ops.chol_solve_batched(H, b)
+    ref = ops.chol_solve_batched_ref(H, b)
+    torch.testing.assert_close(x, ref, rtol=2e-3, atol=2e-3 * float(ref.abs().max()))
+    assert torch.equal(ops.chol_solve_batched(H, b), x)
+
+
+@pytest.mark.gpu
+def test_chol_plan_matches_the_kernels_geometry():
+    """ops.chol_plan and the C++ chol_plan of csrc/chol.cuh give the same
+    (nb, Dp, tiles, smem_bytes) for the widths the repo runs and the limit."""
+    dev = _card()
+    from isvins_tpu_torch.ops import _lib
+    from isvins_tpu_torch.ops.chol_batched import chol_max_dim, chol_plan
+
+    for D in (1, 66, 141, 276, chol_max_dim(), chol_max_dim() + 1):
+        out = torch.zeros(4, dtype=torch.int32)
+        _lib.launch("isv_chol_plan", D, out, device=dev)
+        assert tuple(out.tolist()) == tuple(chol_plan(D)), D
 
 
 @pytest.mark.gpu
@@ -283,9 +315,10 @@ def test_chol_and_schur_reduce_raise_on_bad_cuda_input():
         ops.chol_solve_batched(H, b[:, :-1].contiguous())
     with pytest.raises(ValueError):  # b on another device
         ops.chol_solve_batched(H, b.cpu())
-    with pytest.raises(ValueError):  # the packed triangle would not fit shared memory
-        ops.chol_solve_batched(torch.eye(400, device=dev)[None].contiguous(),
-                               torch.ones((1, 400), device=dev))
+    for n in (321, 400):  # the tiles would not fit shared memory (D <= 320)
+        with pytest.raises(ValueError, match="D <= 320"):
+            ops.chol_solve_batched(torch.eye(n, device=dev)[None].contiguous(),
+                                   torch.ones((1, n), device=dev))
     Hr, br, W, h, bl = chip_smoke.kernel_inputs(dev)["schur_reduce"]
     with pytest.raises(TypeError):
         ops.schur_reduce(Hr.double(), br, W, h, bl)
