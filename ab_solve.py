@@ -11,10 +11,10 @@ make_batch_problem(1, (18, 8, 1000, 3072), float32), 10 LM iterations:
 with Python's cyclic garbage collector off, then one solve under
 torch.profiler for the counts of host operators and device operations (the
 summary's `note` says by how much K3's cluster launch moves the latter),
-then the device times of K3, K7, K4 and K5 (NB = 1 and 16) at the product
-shapes: 100 calls of each wrapper captured in a CUDA graph and replayed
-between two events, so the kernels of two checkouts are compared in one
-call on one card. The
+then the device times of K3, K7, K4, K5 (NB = 1 and 16), K1 and K2 (one
+window's rows and 16 windows') at the product shapes: 100 calls of each
+wrapper captured in a CUDA graph and replayed between two events, so the
+kernels of two checkouts are compared in one call on one card. The
 processes run interleaved, parent, change, change, parent per
 two rounds, so that a host that slows down mid-call slows both. Printed:
 one JSON line per process, a line per root with its device busy ms per
@@ -58,10 +58,26 @@ def graph_ms(fn, reps=100, replays=5) -> float:
     return float(np.median(times))
 
 
+def sequences(args, S, per_seq):
+    """The rows of one window's kernel inputs repeated for S sequences laid
+    end to end, as the batched solve flattens them; the inputs at the
+    positions `per_seq` become one row per sequence, each a little apart
+    (tic/qic for K1, G for K2)."""
+    import torch
+
+    out = [a.repeat((S,) + (1,) * (a.dim() - 1)) for a in args]
+    for i in per_seq:
+        step = 0.001 * torch.arange(S, device=args[i].device, dtype=torch.float32)[:, None]
+        out[i] = args[i].reshape(1, -1) + step
+    return out
+
+
 def kernel_times(dev) -> dict:
     """Graph-replay device ms of the root's K3, K7 and K4 wrappers on the
-    inputs of the root's own chip_smoke.kernel_inputs, and of its K5 at
-    NB = 1 and 16 on chip_smoke.chol_inputs."""
+    inputs of the root's own chip_smoke.kernel_inputs, of its K5 at NB = 1
+    and 16 on chip_smoke.chol_inputs, and of its K1 and K2 on the product
+    window's rows (N = 3072 observations, n = 17 factors) and on those of 16
+    sequences."""
     import chip_smoke  # the root's: it is first on sys.path
 
     from isvins_tpu_torch import ops
@@ -69,6 +85,11 @@ def kernel_times(dev) -> dict:
     inp = chip_smoke.kernel_inputs(dev)
     out = {name: graph_ms(lambda: getattr(ops, name)(*inp[name]))
            for name in ("schur_corr", "schur_reduce", "linstep")}
+    for S in (1, 16):
+        a1 = sequences(inp["proj_rows"], S, (6, 7)) if S > 1 else inp["proj_rows"]
+        a2 = sequences(inp["imu_rows"], S, (17,)) if S > 1 else inp["imu_rows"]
+        out[f"proj_rows_S{S}"] = graph_ms(lambda: ops.proj_rows(*a1))
+        out[f"imu_rows_S{S}"] = graph_ms(lambda: ops.imu_rows(*a2))
     for NB in (1, 16):
         H, b = chip_smoke.chol_inputs(dev, NB)
         out[f"chol_solve_batched_NB{NB}"] = graph_ms(lambda: ops.chol_solve_batched(H, b))

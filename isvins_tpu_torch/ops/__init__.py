@@ -3,7 +3,7 @@ through ctypes) and their plain PyTorch versions.
 
 | kernel     | wrapper                    | plain version                  | replaces (JAX)                           |
 |------------|----------------------------|--------------------------------|------------------------------------------|
-| K1         | proj.proj_rows             | solver.proj_fast.eval_proj_rows| ops/proj_pallas.proj_rows_pallas         |
+| K1         | proj.proj_rows             | proj.proj_rows_ref             | ops/proj_pallas.proj_rows_pallas         |
 | K2         | imu.imu_rows               | imu.imu_rows_ref               | ops/imu_pallas.imu_rows_pallas           |
 | K3         | schur.schur_corr           | schur.schur_corr_ref           | ops/schur_pallas.schur_corr_pallas       |
 | K4         | linstep.linstep            | linstep.linstep_ref            | ops/linstep_pallas.linstep_pallas        |
@@ -34,7 +34,7 @@ from .chol_batched import chol_solve_batched, chol_solve_batched_ref  # noqa: F4
 from .hamming import retrieval_scores, retrieval_scores_ref  # noqa: F401
 from .imu import imu_rows, imu_rows_ref  # noqa: F401
 from .linstep import linstep, linstep_batched, linstep_ref  # noqa: F401
-from .proj import proj_rows  # noqa: F401
+from .proj import proj_rows, proj_rows_ref  # noqa: F401
 from .schur import schur_corr, schur_corr_ref, schur_reduce, schur_reduce_ref  # noqa: F401
 
 KERNELS = {

@@ -152,11 +152,14 @@ def seq_rows(n: int, per_seq: torch.Tensor, name: str) -> int:
 
 
 def launch(name: str, *args, device: torch.device):
-    """Call a C entry point on the current stream of `device`; raise on a
+    """Call a C entry point on the current stream of `device`, with
+    `device` the current device while it runs (the CUDA runtime launches
+    on the thread's current device, whatever the stream's); raise on a
     non-zero CUDA error. Tensors are passed by data pointer; the caller
     keeps them alive across the call."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib(), name)(*conv, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib(), name)(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -1,7 +1,8 @@
 """K1: fused projection-factor evaluation (csrc/proj_rows.cu).
 
 Replaces isvins_tpu/ops/proj_pallas.py::proj_rows_pallas. The plain version
-is solver/proj_fast.eval_proj_rows, with the same signature and returns.
+proj_rows_ref is solver/proj_fast.eval_proj_rows with one extrinsic per
+sequence of rows.
 """
 
 from __future__ import annotations
@@ -12,6 +13,14 @@ from ..solver.proj_fast import eval_proj_rows
 from ._lib import check, launch, seq_rows
 
 
+def proj_rows_ref(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
+    """proj_rows' plain version, with its signature and returns."""
+    if tic.dim() == 2:
+        rows = seq_rows(pts_i.shape[0], tic, "tic")
+        tic, qic = tic.repeat_interleave(rows, 0), qic.repeat_interleave(rows, 0)
+    return eval_proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid)
+
+
 def proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
     """(r (N,2), J_pi (N,2,6), J_pj (N,2,6), J_dep (N,2)), unweighted, f32.
     tic (3,) and qic (4,) serve all rows; (S,3) and (S,4) serve S sequences
@@ -19,12 +28,10 @@ def proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise (f32 only, contiguous, one device)."""
+    if not pts_i.is_cuda:
+        return proj_rows_ref(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid)
     N = pts_i.shape[0]
     rows = seq_rows(N, tic, "tic")
-    if not pts_i.is_cuda:
-        if tic.dim() == 2:
-            tic, qic = tic.repeat_interleave(rows, 0), qic.repeat_interleave(rows, 0)
-        return eval_proj_rows(pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, dep, valid)
     dev = pts_i.device
     for t, name, shape in ((pts_i, "pts_i", (N, 3)), (pts_j, "pts_j", (N, 3)),
                            (Pi, "Pi", (N, 3)), (Qi, "Qi", (N, 4)), (Pj, "Pj", (N, 3)),

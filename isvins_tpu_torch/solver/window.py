@@ -9,9 +9,13 @@ Problem structure (estimator.cpp problemSolve :1004–1146):
 - sparse nonlinear priors (IS scheme): SE3 prior on pose 0, speed/bias prior
   on frame Vo-1, Vo-1 relative-pose edges, roll-pitch edges, Cauchy(1.0)
 
-The JAX one-hot einsums (MXU work on the TPU) become index_select /
-index_add_ here; the landmark Schur elimination and the LM accept/reject are
-as in the reference. Column layout of the full system (D = 15B + 6):
+The JAX one-hot einsums (MXU work on the TPU) become gathers and segment
+sums here: the rows that land on one slot (a frame, a pair of frames, a
+landmark) are summed in an order fixed by plans (`NormalPlans`) built once
+per solve from the factor indices, so that a solve gives the same bits on
+every run, as the reference's one-hot sums do (index_add_ sums in an order
+that changes from run to run on the card). The landmark Schur elimination
+and the LM accept/reject are as in the reference. Column layout of the full system (D = 15B + 6):
   pose i -> [6i, 6i+6),  vb i -> [6B + 9i, 6B + 9i + 9),  ex -> [15B, 15B+6)
 and of the landmark coupling W (reduced, Dr = 6B + 6): [pose | ex].
 
@@ -32,6 +36,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F_nn
 
 from ..factors.preintegration import Preintegration, sqrt_info_from_cov
 from ..factors.projection import projection_residual_jacobians
@@ -336,18 +341,88 @@ def _eval_priors(state: WindowState, priors: PriorState, dims: WindowDims):
     return rows, torch.cat(cvecs, dim=-1)
 
 
+SEGMENT_RUN = 32  # rows a thread adds one after another before the runs are summed
+
+
+class SegmentPlan(NamedTuple):
+    """Rows of a source, grouped by the slot each is summed into, and each
+    slot's rows cut into runs of at most SEGMENT_RUN consecutive rows."""
+
+    order: torch.Tensor  # (R,) int64: the source rows sorted by slot, stably
+    run_starts: torch.Tensor  # (n_runs,) int64: where each run starts in `order`
+    run_ids: torch.Tensor  # (n_runs,) int64: 0, 1, ..., n_runs - 1
+    slot_runs: torch.Tensor  # (n_slots,) int64: each slot's first run
+
+
+def segment_plan(slots: torch.Tensor, n_slots: int) -> SegmentPlan:
+    """The plan of summing row r of a source into slot slots[r] (1-D
+    int64, each in [0, n_slots)). Built on the slots' device without a host
+    read: the number of runs is bounded by R // SEGMENT_RUN + n_slots, and
+    the runs past the last slot's are empty."""
+    dev, R, chunk = slots.device, slots.shape[0], SEGMENT_RUN
+    keys, order = torch.sort(slots, stable=True)
+    bounds = torch.searchsorted(keys, torch.arange(n_slots + 1, device=dev))  # bounds[-1] = R
+    runs = (bounds[1:] - bounds[:-1] + chunk - 1) // chunk
+    ends = torch.cumsum(runs, 0)
+    first = ends - runs
+    run_ids = torch.arange(R // chunk + n_slots, device=dev)
+    s = torch.searchsorted(ends, run_ids, right=True).clamp(max=n_slots - 1)
+    starts = torch.where(run_ids < ends[-1], bounds[s] + (run_ids - first[s]) * chunk, R)
+    return SegmentPlan(order, starts, run_ids, first)
+
+
+def segment_sum(plan: SegmentPlan, src: torch.Tensor) -> torch.Tensor:
+    """src (R, *k) summed per slot -> (n_slots, *k); an empty slot is 0.
+    Each run's rows are added one after another in row order, then each
+    slot's runs one after another (two `embedding_bag` sums, on the CPU and
+    the card alike), so the result has the same bits on every run; the runs
+    keep each thread's serial chain short on the card."""
+    per_run = F_nn.embedding_bag(plan.order, src.reshape(src.shape[0], -1), plan.run_starts,
+                                 mode="sum")
+    out = F_nn.embedding_bag(plan.run_ids, per_run, plan.slot_runs, mode="sum")
+    return out.reshape((-1,) + src.shape[1:])
+
+
+class NormalPlans(NamedTuple):
+    """The segment-sum plans of build_normal_equations, from the projection
+    factors' indices alone: fixed within a solve, so built once by it."""
+
+    frames: SegmentPlan  # host-side rows then observer-side rows -> B frames
+    pairs: SegmentPlan  # row n -> the (idx_i, idx_j) block of the B x B grid
+    landmarks: SegmentPlan  # row n -> landmark fidx
+
+
+def normal_plans(proj: ProjFactors, dims: WindowDims) -> NormalPlans:
+    """The plans for projection factors with any leading sequence axes:
+    sequence s's slots are offset by s times the slot count, so nothing is
+    summed across sequences. Source rows are the factors' rows flattened
+    over the sequences (for `frames`: all host-side rows, then all
+    observer-side rows)."""
+    B, F = dims.B, dims.F
+    idx_i, idx_j, fidx = proj.idx_i.long(), proj.idx_j.long(), proj.fidx.long()
+    lead = idx_i.shape[:-1]
+    S = int(np.prod(lead)) if lead else 1
+    seq = torch.arange(S, device=idx_i.device).reshape(lead + (1,))
+    return NormalPlans(
+        frames=segment_plan(torch.cat([(seq * B + idx_i).reshape(-1),
+                                       (seq * B + idx_j).reshape(-1)]), S * B),
+        pairs=segment_plan((seq * (B * B) + idx_i * B + idx_j).reshape(-1), S * B * B),
+        landmarks=segment_plan((seq * F + fidx).reshape(-1), S * F))
+
+
 def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactors,
                            priors: PriorState, G, pixel_sqrt_info, dims: WindowDims,
-                           estimate_extrinsic: bool = False):
+                           estimate_extrinsic: bool = False, plans: NormalPlans | None = None):
     """Returns (H (D,D), b (D,), h (F,), W (F,Dr), b_l (F,), cost) with the
     landmark coupling W in the reduced layout Dr = 6B+6 ([pose | ex]).
     The projection Hessian is accumulated block-wise: per observation the
     compact 6x6 products are formed and added into the (B,B) block grid.
 
     Every leaf may carry leading sequence axes (G (..., 3) and
-    pixel_sqrt_info (...) then); the outputs carry them too. The
-    scatter-adds then run once over all sequences, on indices offset by the
-    sequence, so nothing is summed across sequences."""
+    pixel_sqrt_info (...) then); the outputs carry them too. The segment
+    sums then run once over all sequences, on slots offset by the sequence,
+    so nothing is summed across sequences. `plans` (normal_plans(proj,
+    dims)) is built here when not given."""
     B, F, D = dims.B, dims.F, dims.D
     Dr = 6 * B + 6
     dtype, dev = state.P.dtype, state.P.device
@@ -367,9 +442,20 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
     H = Jip.transpose(-1, -2) @ Jip
     b = -(Jip.transpose(-1, -2) @ rip[..., None])[..., 0]
 
-    def scatter(n_slots, index, src):
-        """Rows of src (..., n, *k) summed into (..., n_slots, *k) at index
-        (..., n), each sequence into its own slots."""
+    if plans is None:
+        plans = normal_plans(proj, dims)
+
+    def seg(plan, n_slots, *srcs):
+        """Rows of the srcs (..., n, *k), laid end to end as the plan's
+        source, summed into (..., n_slots, *k)."""
+        k = srcs[0].shape[len(lead) + 1:]
+        flat = [s.reshape((-1,) + k) for s in srcs]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat)
+        return segment_sum(plan, flat).reshape(lead + (n_slots,) + k)
+
+    def place(n_slots, index, src):
+        """Rows of src (..., n, *k) written into zeros (..., n_slots, *k) at
+        index (..., n), which holds no slot twice."""
         out = torch.zeros((S * n_slots,) + src.shape[len(lead) + 1:], dtype=dtype, device=dev)
         if lead:
             index = (seq * n_slots + index).reshape(-1)
@@ -377,7 +463,7 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
         return out.reshape(lead + (n_slots,) + src.shape[len(lead) + 1:])
 
     # ---- projection block accumulation ----
-    idx_i, idx_j, fidx = proj.idx_i.long(), proj.idx_j.long(), proj.fidx.long()
+    idx_i, idx_j = proj.idx_i.long(), proj.idx_j.long()
     T = lambda J: J.transpose(-1, -2)
     G_ii = T(J_pi) @ J_pi
     G_jj = T(J_pj) @ J_pj
@@ -385,12 +471,12 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
     g_i = (T(J_pi) @ r_proj[..., None])[..., 0]
     g_j = (T(J_pj) @ r_proj[..., None])[..., 0]
 
-    diag = scatter(B, idx_i, G_ii) + scatter(B, idx_j, G_jj)
-    offd = scatter(B * B, idx_i * B + idx_j, G_ij).reshape(lead + (B, B, 6, 6))
+    diag = seg(plans.frames, B, G_ii, G_jj)
+    offd = seg(plans.pairs, B * B, G_ij).reshape(lead + (B, B, 6, 6))
     Hblk = offd + offd.transpose(-4, -3).transpose(-1, -2)
     torch.diagonal(Hblk, dim1=-4, dim2=-3).add_(diag.movedim(-3, -1))
     H_pose = Hblk.transpose(-3, -2).reshape(lead + (6 * B, 6 * B))
-    gb = scatter(B, idx_i, g_i) + scatter(B, idx_j, g_j)
+    gb = seg(plans.frames, B, g_i, g_j)
 
     H[..., : 6 * B, : 6 * B] += H_pose
     b[..., : 6 * B] -= gb.reshape(lead + (6 * B,))
@@ -401,7 +487,7 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
     wj = (J_dep[..., None, :] @ J_pj)[..., 0, :]
     n = J_dep.shape[-2]
     row = torch.arange(n, device=dev) * B
-    Wrows = (scatter(n * B, row + idx_i, wi) + scatter(n * B, row + idx_j, wj)).reshape(
+    Wrows = (place(n * B, row + idx_i, wi) + place(n * B, row + idx_j, wj)).reshape(
         lead + (n, 6 * B))
 
     if estimate_extrinsic:
@@ -409,7 +495,7 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
         G_je = T(J_pj) @ J_ex
         G_ee = torch.einsum("...nra,...nrb->...ab", J_ex, J_ex)
         g_e = torch.einsum("...nra,...nr->...a", J_ex, r_proj)
-        E_rows = (scatter(B, idx_i, G_ie) + scatter(B, idx_j, G_je)).reshape(lead + (6 * B, 6))
+        E_rows = seg(plans.frames, B, G_ie, G_je).reshape(lead + (6 * B, 6))
         H[..., : 6 * B, 15 * B:] += E_rows
         H[..., 15 * B:, : 6 * B] += T(E_rows)
         H[..., 15 * B:, 15 * B:] += G_ee
@@ -426,7 +512,7 @@ def build_normal_equations(state: WindowState, imu: ImuFactors, proj: ProjFactor
         Wrows,
         -torch.sum(J_dep * r_proj, dim=-1, keepdim=True),
     ], dim=-1)
-    agg = scatter(F, fidx, payload)
+    agg = seg(plans.landmarks, F, payload)
     h = agg[..., 0].contiguous()
     W = agg[..., 1: 1 + Dr].contiguous()
     b_l = agg[..., 1 + Dr].contiguous()
@@ -454,9 +540,11 @@ def _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extr
     dtype, dev = state.P.dtype, state.P.device
     lead = state.P.shape[:-2]
 
+    plans = normal_plans(proj, dims)  # the factors' indices do not change within a solve
+
     def build(st):
         return build_normal_equations(st, imu, proj, priors, G, pixel_sqrt_info, dims,
-                                      estimate_extrinsic)
+                                      estimate_extrinsic, plans)
 
     lam = torch.full(lead, init_lambda, dtype=dtype, device=dev)
     done = torch.zeros(lead, dtype=torch.bool, device=dev)

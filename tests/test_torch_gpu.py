@@ -16,14 +16,13 @@ import pytest
 import torch
 
 from isvins_tpu_torch import ops
-from isvins_tpu_torch.solver.proj_fast import eval_proj_rows
 
 D = 276  # 15 B + 6 at the product window B = 18
 
 # (kernel, plain version, rtol, atol(ref)): the tolerances of the reference's
 # own kernel tests (tests/test_pallas_ops.py)
 CASES = {
-    "proj_rows": (ops.proj_rows, eval_proj_rows, 3e-4, lambda r: 1e-4),
+    "proj_rows": (ops.proj_rows, ops.proj_rows_ref, 3e-4, lambda r: 1e-4),
     "imu_rows": (ops.imu_rows, ops.imu_rows_ref, 1e-5, lambda r: 2e-6 * float(r.abs().max())),
     "schur_corr": (ops.schur_corr, ops.schur_corr_ref, 2e-5, lambda r: 2e-3),
     "linstep": (ops.linstep, lambda *a: ops.linstep_ref(*a, D), 2e-3,
@@ -358,6 +357,101 @@ def test_solve_window_batched_on_card_runs_through_kernels():
         row = [tree_map(lambda a: a[k].contiguous(), t) for t in p64[:4]]
         _, c = solve_window(*row, *p64[4:], dims, iters=10)
         assert abs(float(c64[k]) - float(c)) <= 1e-9 * float(c)
+
+
+# K1 at (rows N, sequences S) and K2 at n factors: one row, the edges of a
+# 32-row block, sequences that straddle blocks, the product window, the
+# rows of 16 sequences; odd n (a block holds two factors)
+ROWS_CASES = ([("proj_rows", N, S) for N, S in ((1, 1), (31, 1), (33, 3), (3072, 1),
+                                                 (3072 * 16, 16))]
+              + [("imu_rows", n, 1) for n in (1, 2, 17, 68, 272)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,S", ROWS_CASES)
+def test_rows_kernels_ragged_sizes_on_card(name, n, S):
+    """K1 and K2 at the ragged sizes (chip_smoke.proj_case: several
+    sequences with their own tic/qic, masked rows with depth 0, points at
+    the +-1e-6 z clamp; chip_smoke.imu_case: a masked factor, per-sequence
+    gravity from 68 factors on): one launch, counted once, within the
+    reference's tolerance of the plain version, finite, and the same bits
+    on a second launch."""
+    dev = _card()
+    import chip_smoke
+
+    if name == "proj_rows":
+        args, plain = chip_smoke.proj_case(dev, n, S), ops.proj_rows_ref
+    else:
+        args, plain = chip_smoke.imu_case(dev, n), ops.imu_rows_ref
+    kern, _, rtol, atol = CASES[name]
+    before = ops.KERNELS[name].launches
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert ops.KERNELS[name].launches == before + 1
+    for o, r in zip(out, plain(*args)):
+        torch.testing.assert_close(o, r, rtol=rtol, atol=atol(r))
+        assert bool(torch.isfinite(o).all())
+    assert all(torch.equal(o, o2) for o, o2 in zip(out, kern(*args)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NB", [0, 16])
+def test_solves_repeat_bit_for_bit_on_card(NB):
+    """Two runs of the same f32 solve of the product window (10 LM
+    iterations; NB = 0: solve_window, else solve_window_batched of NB
+    windows) give the same bits in every state leaf and the cost: the
+    normal equations' segment sums add in a fixed order."""
+    dev = _card()
+    from isvins_tpu_torch.parallel import make_batch_problem
+    from isvins_tpu_torch.solver import WindowDims, solve_window, solve_window_batched
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    dims = WindowDims(18, 8, 1000, 3072)
+    prob = make_batch_problem(max(NB, 1), dims, torch.float32, device=dev)
+    if NB:
+        run = lambda: solve_window_batched(*prob, dims, iters=10)
+    else:
+        args = [tree_map(lambda a: a[0].contiguous(), t) for t in prob[:4]] + list(prob[4:])
+        run = lambda: solve_window(*args, dims, iters=10)
+    (st, cost), (st2, cost2) = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip((*st, cost), (*st2, cost2)))
+
+
+@pytest.mark.gpu
+def test_segment_sum_on_card_without_host_read():
+    """normal_plans and segment_sum on the card read nothing back to the
+    host (a sync raises under the debug mode), equal index_add_ to rounding,
+    and give the bits of the same sums on the CPU (each slot's rows added
+    in row order on both)."""
+    dev = _card()
+    from isvins_tpu_torch.solver.window import (ProjFactors, WindowDims, normal_plans,
+                                                segment_sum)
+
+    rng = np.random.default_rng(5)
+    dims = WindowDims(18, 8, 1000, 3072)
+    idx_i = rng.integers(0, 18, (2, 3072))
+    idx_j = (idx_i + rng.integers(1, 18, (2, 3072))) % 18
+    fidx = rng.integers(0, 1000, (2, 3072))
+    src = rng.normal(size=(2 * 2 * 3072, 36)).astype(np.float32)
+
+    def sums(device):
+        t = lambda a: torch.as_tensor(a, device=device)
+        proj = ProjFactors(t(idx_i), t(idx_j), t(fidx), None, None, None)
+        rows = t(src)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if device != "cpu" else "default")
+        try:
+            out = segment_sum(normal_plans(proj, dims).frames, rows)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out.cpu()
+
+    card, cpu = sums(dev), sums("cpu")
+    assert torch.equal(card, cpu)
+    keys = np.concatenate([(np.arange(2)[:, None] * 18 + idx_i).ravel(),
+                           (np.arange(2)[:, None] * 18 + idx_j).ravel()])
+    ref = torch.zeros((36, 36)).index_add_(0, torch.as_tensor(keys), torch.as_tensor(src))
+    torch.testing.assert_close(card, ref, rtol=1e-5, atol=1e-4)
 
 
 def test_resolve_device_without_a_card_raises():
