@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's single window solve from two checkouts on one card.
 
-    python3 ab_solve.py PARENT_ROOT CHANGE_ROOT [--rounds 4]
+    python3 ab_solve.py PARENT_ROOT CHANGE_ROOT [--rounds 4] [--slice]
 
 Each root holds a checkout of this repository (an `isvins_tpu_torch`
 package). Every measurement is a process of its own that imports the
@@ -14,7 +14,10 @@ summary's `note` says by how much K3's cluster launch moves the latter),
 then the device times of K3, K7, K4, K5 (NB = 1 and 16), K1 and K2 (one
 window's rows and 16 windows') at the product shapes: 100 calls of each
 wrapper captured in a CUDA graph and replayed between two events, so the
-kernels of two checkouts are compared in one call on one card. The
+kernels of two checkouts are compared in one call on one card (K6 and,
+where the checkout takes them, K4 and K5 at D = 321, 366 and 486 as
+well); with --slice each process then runs its root's 60-frame estimator
+drive (chip_smoke.phase_slice) for est_steady_median_ms. The
 processes run interleaved, parent, change, change, parent per
 two rounds, so that a host that slows down mid-call slows both. Printed:
 one JSON line per process, a line per root with its device busy ms per
@@ -75,9 +78,11 @@ def sequences(args, S, per_seq):
 def kernel_times(dev) -> dict:
     """Graph-replay device ms of the root's K3, K7 and K4 wrappers on the
     inputs of the root's own chip_smoke.kernel_inputs, of its K5 at NB = 1
-    and 16 on chip_smoke.chol_inputs, and of its K1 and K2 on the product
+    and 16 on chip_smoke.chol_inputs, of its K1 and K2 on the product
     window's rows (N = 3072 observations, n = 17 factors) and on those of 16
-    sequences."""
+    sequences, of its K6 at K = 1, 23, 256 and 4096 keyframes
+    (chip_smoke.retrieval_inputs), and of its K5 (NB = 1) and K4 at D = 321,
+    366 and 486 (None where the checkout refuses them)."""
     import chip_smoke  # the root's: it is first on sys.path
 
     from isvins_tpu_torch import ops
@@ -93,6 +98,17 @@ def kernel_times(dev) -> dict:
     for NB in (1, 16):
         H, b = chip_smoke.chol_inputs(dev, NB)
         out[f"chol_solve_batched_NB{NB}"] = graph_ms(lambda: ops.chol_solve_batched(H, b))
+    for K in (1, 23, 256, 4096):
+        a6 = chip_smoke.retrieval_inputs(dev, K)
+        out[f"retrieval_scores_K{K}"] = graph_ms(lambda: ops.retrieval_scores(*a6))
+    for D in (321, 366, 486):  # a checkout whose K4 and K5 refuse them records None
+        H, b = chip_smoke.chol_inputs(dev, 1, D=D)
+        a4 = chip_smoke.small_linstep_inputs(dev, (D - 6) // 15, 1000)
+        try:
+            out[f"chol_solve_batched_D{D}"] = graph_ms(lambda: ops.chol_solve_batched(H, b))
+            out[f"linstep_D{D}"] = graph_ms(lambda: ops.linstep(*a4))
+        except ValueError:
+            out[f"chol_solve_batched_D{D}"] = out[f"linstep_D{D}"] = None
     return out
 
 
@@ -149,7 +165,19 @@ def measure(root: str) -> dict:
             "device_ops": sum(device_ops.values()),
             "device_busy_ms": sum(dev_time(e) for e in avgs) / 1e3,
             "kernel_graph_ms": kernel_times(dev),
+            "slice": slice_times(dev) if "--slice" in sys.argv else None,
             "host_op_counts": host_ops, "device_op_counts": device_ops}
+
+
+def slice_times(dev) -> dict:
+    """The root's own chip_smoke.phase_slice (the 60-frame estimator drive
+    at the EuRoC window): est_steady_median_ms and, where the root prints
+    them, the LM iterations taken and run."""
+    import chip_smoke
+
+    _, rec = chip_smoke.phase_slice(dev)
+    keep = ("est_steady_median_ms", "est_ate_vio_m", "lm_iterations_taken", "lm_iterations_run")
+    return {k: rec[k] for k in keep if k in rec}
 
 
 def one_command_build(root: str) -> float:
@@ -180,7 +208,8 @@ def main():
     runs = {parent: [], change: []}
     for r in range(rounds):
         for root in ((parent, change) if r % 2 == 0 else (change, parent)):
-            out = subprocess.run([sys.executable, __file__, "--measure", root],
+            out = subprocess.run([sys.executable, __file__, "--measure", root]
+                                 + (["--slice"] if "--slice" in sys.argv else []),
                                  capture_output=True, text=True, check=True).stdout
             rec = json.loads(next(l for l in out.splitlines() if l.startswith("AB "))[3:])
             runs[root].append(rec)
@@ -196,6 +225,7 @@ def main():
                       "device_busy_ms": med([r["device_busy_ms"] for r in runs[root]]),
                       "kernel_graph_ms": {k: [r["kernel_graph_ms"][k] for r in runs[root]]
                                           for k in runs[root][0]["kernel_graph_ms"]},
+                      "slice": [r["slice"] for r in runs[root]],
                       "first_build_s": runs[root][0]["build_s"]}
                for name, root in (("parent", parent), ("change", change))}
     for kind in ("host", "device"):

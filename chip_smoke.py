@@ -12,17 +12,23 @@ exits non-zero:
                4, 8, 16, 32, and K1 and K2 on the flattened rows of 4 and
                of 16 sequences: the multiseq path's two batches; K6 exact,
                at K = 23, the posegraph path's largest, and at 1, 256 and
-               4096; K7 with an empty landmark; K1 and K2 also at the
+               4096, and on every case of make_retrieval_cases at the K of
+               RETRIEVAL_SIZES; its library call is torch._int_mm of the
+               unpacked bits, the product alone, and its text line gives
+               the CUDA cores' popcount floor; K7 with an empty landmark;
+               K1 and K2 also at the
                ragged sizes of ROWS_SIZES and FACTOR_SIZES, with masked
                rows and factors and points at the z clamp, twice with
                equal bits; K3 and K7 also at the
                small and ragged shapes of SCHUR_SHAPES, K3 with and
                without lam, both twice with equal bits and an exactly
-               symmetric C; K4 and K5 also at D = 66 and 141, twice with
-               equal bits, with a bad pivot at columns 0, 100 and D - 1,
-               and ops.chol_plan held against the C++ geometry; K4's
-               chain alone timed as cholesky_solve(cholesky_ex) on its
-               own H_dd, `chain_library_ms`);
+               symmetric C; K4 and K5 also at D = 66 and 141 and, on the
+               global route (tiles in device memory), at D = 321, 366 and
+               486, twice with equal bits, with a bad pivot at columns 0,
+               100 and D - 1 on both routes, ops.chol_plan held against
+               the C++ geometry, and a full f32 solve_window at all_size
+               21; K4's chain alone timed as cholesky_solve(cholesky_ex)
+               on its own H_dd, `chain_library_ms`);
                device times of kernel, plain version and, where one
                PyTorch call computes the same function, that call: 100
                calls captured in a CUDA graph, replayed between two events
@@ -33,11 +39,17 @@ exits non-zero:
                bound from its bytes and operations
   4. solve   — solve_window on make_batch_problem(1, (18, 8, 1000, 3072)),
                10 LM iterations, f32: vio_window_solve_frames_per_s, the
-               launch counts of K1-K4 against the builds/iterations it ran,
+               launch counts of K1-K4 against the builds/iterations it ran
+               (every iteration runs: the loop reads nothing on the host),
                and a second run with the same bits
   5. slice   — the Estimator on a synthetic world at the EuRoC window
-               (18/8/1000, N=3072): steady frames through K1-K4, ATE
-               against ground truth
+               (18/8/1000, N=3072): steady frames through K1-K4 (launches
+               = 11, 11, 10, 10 per solve), ATE against ground truth, LM
+               iterations taken against run; then one steady solve
+               dispatched under torch.cuda.set_sync_debug_mode("error")
+               (host time to return beside the solve's stream time), and
+               the drive's marginalizations again on the card and on the
+               CPU (ROADMAP C10)
   6. posegraph — the estimator's steady frames feeding the PoseGraphBuilder
                at bench.py's e2e configuration with loops on (320x240
                rendered room, 130 frames, 1.34 laps): keyframes, BRIEF,
@@ -96,16 +108,24 @@ KERNEL_META = {
 }
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the
-# tensor cores, and HBM3. K6's integer xor/popcount/add work is counted at
-# the same rate: it runs on the same cores.
+# tensor cores, int8 on the tensor cores (dense), and HBM3. K6's product of
+# bits runs on the tensor cores (binary wgmma, for which the data sheet gives
+# no rate): its bound counts it as the int8 product of 0/1 bytes.
 PEAK_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# popc per clock per SM on the CUDA cores (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): K6's floor
+# were it xor + popcount there
+POPC_PER_CLOCK_SM = 16
 
 # The multiseq path's batches: (a) this many bare product windows, (b) one
 # estimator per seeded world. The kernels phase checks K1, K2 and K5 at both
 # sequence counts.
 MULTISEQ_NB = 16
 MULTISEQ_SEEDS = (11, 12, 13, 14)
+
+CARD = {}  # SM count and clocks, read by phase_device
 
 
 def phase_device():
@@ -120,6 +140,13 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True,
     )
     print("[device] nvidia-smi:", smi.stdout.strip())
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD["sm_clock_mhz"], CARD["max_sm_clock_mhz"] = (float(x) for x in clocks.split(","))
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[device] SM clock {CARD['sm_clock_mhz']:.0f} MHz (max {CARD['max_sm_clock_mhz']:.0f}), "
+          f"{CARD['sms']} SMs")
     from isvins_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -489,8 +516,8 @@ def kernel_work(name, args):
     if name == "retrieval_scores":
         R, words = args[0].shape
         K = args[2].shape[0]
-        # per pair of descriptors: xor, popcount and add per word
-        return (K + 1) * (R * words * 4 + R) + K * 4, K * R * R * words * 3
+        # the product of (R x 256) query bits by (256 x R K) database bits
+        return (K + 1) * (R * words * 4 + R) + K * 4, 2 * K * R * R * words * 32
     if name == "schur_reduce":
         F, D = args[2].shape
         return (2 * D * D + F * D + 2 * F + 2 * D) * 4, 2 * F * D * D + 2 * F * D
@@ -500,7 +527,8 @@ def kernel_work(name, args):
 def kernel_bound(name, args):
     """bound_ms and which side bounds it, from this call's inputs."""
     nbytes, nops = kernel_work(name, args)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_FLOPS * 1e3
+    peak = PEAK_INT8_OPS if name == "retrieval_scores" else PEAK_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -523,7 +551,25 @@ def library_call(name, args):
         X = torch.cat([W, b_l[:, None]], dim=1).contiguous()
         Hb = torch.cat([H, b[:, None]], dim=1).contiguous()
         return lambda: torch.addmm(Hb, W.T, X / h_safe[:, None], alpha=-1)
+    if name == "retrieval_scores":  # the product alone: <a, b> of every pair, int8
+        qd, _, dbd, _, _ = args
+        A, B = unpack_bits(qd), unpack_bits(dbd.reshape(-1, qd.shape[1]))
+        try:  # a yardstick only: a shape the library refuses leaves it out
+            torch._int_mm(A, B.T)
+        except RuntimeError as e:
+            print(f"[kernels]   torch._int_mm refused the product: {str(e).splitlines()[0][:120]}")
+            return None
+        return lambda: torch._int_mm(A, B.T)
     return None
+
+
+def unpack_bits(words):
+    """(n, 8) int32 descriptor words -> (n, 256) int8 0/1, on their device."""
+    import torch
+
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1).to(torch.int8).contiguous()
 
 
 def _measure(name, kern, plain, args, rtol, atol_fn, reps=100, plain_reps=100):
@@ -545,6 +591,11 @@ def _measure(name, kern, plain, args, rtol, atol_fn, reps=100, plain_reps=100):
            "plain_ms": p_ms, "plain_timing": p_how, **kernel_bound(name, args),
            "library_ms": l_ms, "library_timing": l_how}
     lib_txt = f" library {l_ms * 1e3:.2f} us ({l_how})" if lib is not None else ""
+    if name == "retrieval_scores":  # the CUDA cores' floor at the card's top SM clock: text only
+        R, words = args[0].shape
+        floor_ms = (R * R * words * args[2].shape[0] / POPC_PER_CLOCK_SM
+                    / CARD["sms"] / (CARD["max_sm_clock_mhz"] * 1e6) * 1e3)
+        lib_txt += f" popc floor {floor_ms * 1e3:.3f} us (computed)"
     print(f"[kernels] {name}: max_abs_err={rec['max_abs_err']:.3g} kernel {rec['ms'] * 1e3:.2f} us "
           f"(graph replay; eager {rec['eager_ms'] * 1e3:.2f} us) plain "
           f"{rec['plain_ms'] * 1e3:.2f} us ({p_how}){lib_txt} bound {rec['bound_ms'] * 1e3:.3f} us "
@@ -630,21 +681,29 @@ def kernel_cases(dev):
     return inp, cases
 
 
-def chol_plan_check(dev, widths=(66, 141, 276)):
+# K4's and K5's widths beyond the product window's 276: the small windows
+# (B = 4, 9), the largest of the shared route, and B = 21, 24, 32 on the
+# global route (the tiles in a device-memory scratch)
+CHOL_WIDE = (321, 366, 486)
+
+
+def chol_plan_check(dev, widths=(66, 141, 276, 320) + CHOL_WIDE):
     """ops.chol_plan (Python) and chol_plan of csrc/chol.cuh (C++, through
-    isv_chol_plan) must give the same layout for every D this script runs."""
+    isv_chol_plan) must give the same layout and route for every D this
+    script runs."""
     import torch
 
     from isvins_tpu_torch.ops import _lib
     from isvins_tpu_torch.ops.chol_batched import chol_plan
 
     for D in widths:
-        out = torch.zeros(4, dtype=torch.int32)
+        out = torch.zeros(5, dtype=torch.int32)
         _lib.launch("isv_chol_plan", D, out, device=dev)
         if tuple(out.tolist()) != tuple(chol_plan(D)):
             raise AssertionError(f"chol_plan({D}): C++ {out.tolist()} != Python {chol_plan(D)}")
     print(f"[kernels] chol_plan: Python and C++ agree at D = {widths}: "
-          f"{[tuple(chol_plan(D)) for D in widths]} (nb, Dp, tiles, smem_bytes)")
+          f"{[(D, chol_plan(D).route, tuple(chol_plan(D))) for D in widths]} "
+          "(nb, Dp, tiles, smem_bytes, scratch_floats)")
 
 
 def small_linstep_inputs(dev, B, F, seed=0):
@@ -698,25 +757,79 @@ def chol_checks(dev, cases):
         errs.append(f"D={D}: K5 {_max_err((x,), (ref,)):.3g}, K4 {_max_err(out, ref4):.3g}")
     print(f"[kernels] K5 (NB = 4) and K4 at small windows, max abs err {'; '.join(errs)}; "
           "repeat bit for bit")
-    H, b = chol_inputs(dev, 8)
-    good = ops.chol_solve_batched(H, b)
-    lin = small_linstep_inputs(dev, 18, 1000)
-    D, keep = H.shape[-1], [n for n in range(8) if n != 3]
-    for col in (0, 100, D - 1):
-        Hb = H.clone()
-        Hb[3, col, col] = -1.0
-        x = ops.chol_solve_batched(Hb, b)
-        Hl = lin[0].clone()
-        Hl[col, col] = -1e6
-        dx, dl = ops.linstep(Hl, *lin[1:])
-        torch.cuda.synchronize()
-        if not bool(torch.isnan(x[3]).all()) or not torch.equal(x[keep], good[keep]):
-            raise AssertionError(f"chol_solve_batched: a bad pivot at column {col} must give "
-                                 "one NaN row and leave the others' bits")
-        if not (bool(torch.isnan(dx).all()) and bool(torch.isnan(dl).all())):
-            raise AssertionError(f"linstep: a bad pivot at column {col} must give NaN dx, dl")
-    print("[kernels] a bad pivot at column 0, 100 and D - 1: K5 gives that system a NaN row "
-          "and the other seven their bits; K4 gives NaN dx and dl")
+    for B in (18, 32):  # both routes
+        H, b = chol_inputs(dev, 8, D=15 * B + 6)
+        good = ops.chol_solve_batched(H, b)
+        lin = small_linstep_inputs(dev, B, 1000)
+        D, keep = H.shape[-1], [n for n in range(8) if n != 3]
+        for col in (0, 100, D - 1):
+            Hb = H.clone()
+            Hb[3, col, col] = -1.0
+            x = ops.chol_solve_batched(Hb, b)
+            Hl = lin[0].clone()
+            Hl[col, col] = -1e6
+            dx, dl = ops.linstep(Hl, *lin[1:])
+            torch.cuda.synchronize()
+            if not bool(torch.isnan(x[3]).all()) or not torch.equal(x[keep], good[keep]):
+                raise AssertionError(f"chol_solve_batched D={D}: a bad pivot at column {col} "
+                                     "must give one NaN row and leave the others' bits")
+            if not (bool(torch.isnan(dx).all()) and bool(torch.isnan(dl).all())):
+                raise AssertionError(f"linstep D={D}: a bad pivot at column {col} must give "
+                                     "NaN dx, dl")
+    print("[kernels] a bad pivot at column 0, 100 and D - 1, at D = 276 and 486: K5 gives that "
+          "system a NaN row and the other seven their bits; K4 gives NaN dx and dl")
+
+
+def chol_wide_checks(dev, cases, records):
+    """K4 and K5 on the global route, D = CHOL_WIDE (all_size 21, 24, 32):
+    against their plain versions at the reference's tolerances (2e-3 of the
+    largest entry, rtol 2e-3), twice with equal bits, timed by graph replay
+    (K5 at NB = 1 and 16, K4 at F = 1000) into records[name]["at_D"]; then a
+    full f32 solve_window at all_size 21 on make_batch_problem."""
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.ops.chol_batched import chol_plan
+    from isvins_tpu_torch.parallel.sharded import make_batch_problem
+    from isvins_tpu_torch.solver import WindowDims, solve_window
+
+    _, _, k5_rtol, k5_atol = cases["chol_solve_batched"]
+    _, _, k4_rtol, k4_atol = cases["linstep"]
+    records["linstep"]["at_D"], records["chol_solve_batched"]["at_D"] = {}, {}
+    for D in CHOL_WIDE:
+        B = (D - 6) // 15
+        H, b = chol_inputs(dev, MULTISEQ_NB, D=D)
+        x, ref = ops.chol_solve_batched(H, b), ops.chol_solve_batched_ref(H, b)
+        _assert_close(f"chol_solve_batched D={D}", (x,), (ref,), k5_rtol, k5_atol)
+        a = small_linstep_inputs(dev, B, 1000)
+        out, ref4 = ops.linstep(*a), ops.linstep_ref(*a, D)
+        _assert_close(f"linstep D={D}", out, ref4, k4_rtol, k4_atol)
+        if not (torch.equal(ops.chol_solve_batched(H, b), x)
+                and all(torch.equal(o, o2) for o, o2 in zip(ops.linstep(*a), out))):
+            raise AssertionError(f"K4 or K5 at D={D}: two runs differ")
+        H1, b1 = H[:1].contiguous(), b[:1].contiguous()
+        t5 = {NB: graph_ms(lambda: ops.chol_solve_batched(Hn, bn))
+              for NB, (Hn, bn) in ((1, (H1, b1)), (MULTISEQ_NB, (H, b)))}
+        t4 = graph_ms(lambda: ops.linstep(*a))
+        records["chol_solve_batched"]["at_D"][D] = {"ms": t5[1], f"ms_NB{MULTISEQ_NB}":
+                                                    t5[MULTISEQ_NB],
+                                                    "max_abs_err": _max_err((x,), (ref,))}
+        records["linstep"]["at_D"][D] = {"ms": t4, "max_abs_err": _max_err(out, ref4)}
+        print(f"[kernels] D={D} ({chol_plan(D).route} route): K5 max abs err "
+              f"{_max_err((x,), (ref,)):.3g}, {t5[1] * 1e3:.2f} us at NB = 1, "
+              f"{t5[MULTISEQ_NB] * 1e3:.2f} us at NB = {MULTISEQ_NB}; K4 max abs err "
+              f"{_max_err(out, ref4):.3g}, {t4 * 1e3:.2f} us; both repeat bit for bit")
+    dims = WindowDims(21, 8, 1000, 3072)
+    prob = make_batch_problem(1, dims, torch.float32, device=dev)
+    args = [_squeeze(x) for x in prob[:4]] + list(prob[4:])
+    st, cost = solve_window(*args, dims, iters=10)
+    c0 = float(solve_window(*args, dims, iters=0)[1])
+    print(f"[kernels] solve_window at all_size 21 (D = {dims.D}, {chol_plan(dims.D).route} "
+          f"route), f32 on the card: cost {c0:.6g} -> {float(cost):.6g}")
+    if not (all(bool(torch.isfinite(a).all()) for a in st) and np.isfinite(float(cost))
+            and float(cost) < c0):
+        raise AssertionError("the f32 solve at all_size 21 did not run to a finite, lower cost")
 
 
 def linstep_chain_library(args):
@@ -767,6 +880,7 @@ def phase_kernels(dev):
         _measure("chol_solve_batched", *cases["chol_solve_batched"][:2], chol_inputs(dev, NB),
                  *cases["chol_solve_batched"][2:])
     chol_checks(dev, cases)
+    chol_wide_checks(dev, cases, records)
     records["linstep"].update(linstep_chain_library(inp["linstep"]))
     # K1 and K2 at the batched paths' flattened rows: the coordinated
     # estimators' sequences and the bare windows', each sequence with its own
@@ -785,17 +899,52 @@ def phase_kernels(dev):
         print(f"[kernels] imu_rows, {S} sequences x {inp['imu_rows'][0].shape[0]} factors:")
         _measure("imu_rows", ops.imu_rows, ops.imu_rows_ref, a2, *cases["imu_rows"][2:])
     rows_checks(dev, cases)
+    retrieval_checks(dev)
     # K6 (above at K = 23) also at one keyframe (the path's first query, a
     # one-block grid), the slice's capacity and the default one
     # (PoseGraphConfig.max_keyframes)
+    records["retrieval_scores"]["at_K"] = {}
     for K in (1, 256, 4096):
         args = retrieval_inputs(dev, K)
         print(f"[kernels] retrieval_scores K={K}:")
-        _measure("retrieval_scores", *cases["retrieval_scores"][:2], args, 0.0, lambda r: 0.0,
-                 plain_reps=20)
+        rec = _measure("retrieval_scores", *cases["retrieval_scores"][:2], args, 0.0,
+                       lambda r: 0.0, plain_reps=20)
+        records["retrieval_scores"]["at_K"][K] = {
+            k: rec[k] for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
         if K >= 18 and not float(ops.retrieval_scores_ref(*args)[3]) > 0.9:
             raise AssertionError(f"retrieval_scores at K={K}: planted duplicate not found")
     return records
+
+
+# K6's sizes beyond the path's: one and two keyframes (one and two blocks),
+# the path's largest, one grid's worth around 64 and 129 (past a power of
+# two), the slice's capacity and the default one
+RETRIEVAL_SIZES = (1, 2, 23, 64, 129, 256, 4096)
+
+
+def retrieval_checks(dev):
+    """K6 exactly equal to its plain version on utils.synthetic's
+    make_retrieval_cases at every size of RETRIEVAL_SIZES: thresholds 0,
+    33, 40, 109, 257 and 600, random and near-duplicate databases, invalid
+    database rows and keyframes, every query row invalid."""
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.utils.synthetic import make_retrieval_cases
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    n = 0
+    for K in RETRIEVAL_SIZES:
+        for name, (qd, qv, dbd, dbv), thresh in make_retrieval_cases(K):
+            args = (t(qd.view(np.int32)), t(qv), t(dbd.view(np.int32)), t(dbv), thresh)
+            out, ref = ops.retrieval_scores(*args), ops.retrieval_scores_ref(*args)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"retrieval_scores K={K} {name} thresh={thresh}: max abs "
+                                     f"err {float((out - ref).abs().max()):.3g}")
+            n += 1
+    print(f"[kernels] retrieval_scores exact on {n} cases at K = {RETRIEVAL_SIZES} (thresholds "
+          "0, 33, 40, 109, 257, 600; invalid rows, keyframes and queries)")
 
 
 def phase_profiler(dev, records):
@@ -809,6 +958,62 @@ def phase_profiler(dev, records):
         rec["profiler_ms"] = profiler_ms(name, lambda: case[0](*inp[name]))
         print(f"[profiler] {name}: {rec['profiler_ms'] * 1e3:.2f} us of device time per call in "
               f"{PROFILER_NAMES[name]} beside {rec['ms'] * 1e3:.2f} us by graph replay")
+
+
+def nullspace_cost(dev, F=1000, rows=36, reps=20):
+    """What device_triangulate's 4x4 nullspace costs per steady solve (one
+    call a solve): estimator.min_eigvec_sym4 (the cyclic Jacobi the port
+    runs, no host read) against torch.linalg.eigh (which reads its error
+    flags on the host on CUDA), on F = 1000 Gram matrices of (36 x 4)
+    systems (a track seen in all 18 frames of the EuRoC window). Per call:
+    the host's time until it returns (median; eigh's includes its wait for
+    the card), the device's time between two events, and torch.profiler's
+    counts of host operators and of device kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from isvins_tpu_torch.estimator.estimator import min_eigvec_sym4
+
+    A = torch.as_tensor(np.random.default_rng(0).normal(size=(F, rows, 4)), dtype=torch.float32,
+                        device=dev)
+    G = A.transpose(-1, -2) @ A
+    ways = {"jacobi": lambda: min_eigvec_sym4(G),
+            "eigh": lambda: torch.linalg.eigh(G)[1][..., :, 0]}
+    rec = {}
+    for name, fn in ways.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        host, dev_ms = [], []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        rec[name] = {"host_ms": float(np.median(host)), "device_ms": float(np.median(dev_ms)),
+                     "host_ops": sum(e.count for e in avgs if e.key.startswith("aten::")),
+                     "kernels": sum(e.count for e in avgs if e.device_type.name == "CUDA")}
+    v, ref = min_eigvec_sym4(G), torch.linalg.eigh(G.double())[1][..., :, 0]
+    rec["jacobi_max_err"] = float(torch.minimum((v.double() - ref).abs().amax(-1),
+                                                (v.double() + ref).abs().amax(-1)).max())
+    print(f"[nullspace] device_triangulate's nullspace, F={F} (36 x 4) systems, once per steady "
+          f"solve: Jacobi host {rec['jacobi']['host_ms']:.3f} ms, device "
+          f"{rec['jacobi']['device_ms']:.3f} ms, {rec['jacobi']['host_ops']} aten ops, "
+          f"{rec['jacobi']['kernels']} kernels; eigh host {rec['eigh']['host_ms']:.3f} ms "
+          f"(waits for the card), device {rec['eigh']['device_ms']:.3f} ms, "
+          f"{rec['eigh']['host_ops']} aten ops, {rec['eigh']['kernels']} kernels; Jacobi "
+          f"against eigh in f64: {rec['jacobi_max_err']:.3g}")
+    return rec
 
 
 def _squeeze(tree):
@@ -835,10 +1040,11 @@ def phase_solve(dev):
     st, cost = solve_window(*args, dims, iters=10, info=info)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    it = info["iterations"]
+    it = 10  # every iteration runs; those after convergence leave the result as it is
     expect = dict.fromkeys(counts, 0)
     expect.update(proj_rows=it + 1, imu_rows=it + 1, schur_corr=it, linstep=it)
-    print(f"[solve] iterations={it} cost={float(cost):.6g} launches={counts} expected={expect}")
+    print(f"[solve] iterations taken {int(info['iterations'])} of {it} run; "
+          f"cost={float(cost):.6g} launches={counts} expected={expect}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
     if not all(bool(torch.isfinite(a).all()) for a in st) or not np.isfinite(float(cost)):
@@ -878,9 +1084,72 @@ def phase_solve(dev):
             "solve_rerun_max_abs_diff": rerun}
 
 
+def _record_marg(est, snaps):
+    """Wrap est._marg_compute so that `snaps` keeps the inputs of every
+    marginalization of the drive (for _time_marg_placements after it)."""
+    real = est._marg_compute
+
+    def recording(*snap, **kw):
+        snaps.append(snap)
+        return real(*snap, **kw)
+
+    est._marg_compute = recording
+    return real
+
+
+def _time_marg_placements(real, dev, snaps):
+    """ROADMAP C10: every marginalization of the drive computed again, f64,
+    on the card and on the CPU in turns (which goes first alternates), on
+    the frame thread with nothing else running: per job the forward and
+    backward halves (utils/perf phases est.marg_forward, est.marg_backward)
+    and the whole call, and the largest gap between the two results
+    (relative to 1 + |value|; the sqrt-information factors may differ by an
+    orthogonal transform where the information has equal eigenvalues, so
+    the gap is printed, not held)."""
+    import numpy as np
+
+    from isvins_tpu_torch.utils import perf
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    times, gap = {"cuda": [], "cpu": []}, 0.0
+    perf.reset()
+    perf.enable(True)
+    try:
+        for n, snap in enumerate(snaps):
+            out = {}
+            for kind in (("cuda", "cpu") if n % 2 == 0 else ("cpu", "cuda")):
+                perf.reset()
+                t0 = time.perf_counter()
+                out[kind] = real(*snap, device=dev if kind == "cuda" else "cpu")
+                total = (time.perf_counter() - t0) * 1e3
+                st = perf.stats()
+                times[kind].append((st["est.marg_forward"]["total_ms"],
+                                    st["est.marg_backward"]["total_ms"], total))
+            f64 = lambda a: np.asarray(a, np.float64)
+            gaps = []
+            tree_map(lambda a, b: gaps.append(float(np.max(np.abs(f64(a) - f64(b))
+                                                            / (1.0 + np.abs(f64(b))))))
+                     if np.size(a) else None, out["cuda"], out["cpu"])
+            gap = max([gap] + gaps)
+    finally:
+        perf.enable(False)
+    rec = {}
+    for kind, rows in times.items():
+        f, b, tot = (np.array([r[i] for r in rows]) for i in range(3))
+        rec[kind] = {"n": len(rows), "forward_median_ms": float(np.median(f)),
+                     "backward_median_ms": float(np.median(b)),
+                     "median_ms": float(np.median(tot)), "total_ms": float(tot.sum())}
+    rec["gap"] = gap
+    return rec
+
+
 def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
     """The Estimator at the EuRoC window on a synthetic world: init through
-    the ground-truth hook, then steady frames through K1-K4."""
+    the ground-truth hook, then steady frames through K1-K4. After the
+    drive, one steady solve is dispatched under
+    torch.cuda.set_sync_debug_mode("error"), and every marginalization of
+    the drive is computed again on the card and on the CPU
+    (_time_marg_placements: ROADMAP C10's placement)."""
     import numpy as np
     import torch
 
@@ -888,6 +1157,7 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
     from isvins_tpu_torch.config import euroc_config
     from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
     from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.utils import perf
     from isvins_tpu_torch.utils.synthetic import make_world, project
 
     # EuRoC window defaults (18/8/1000, 64 IMU samples per frame); the
@@ -905,7 +1175,10 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
 
     est._gt_init = gt_init
     tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(np.asarray(ric))
-    feats, used, steady_ms, errs = [], [], [], []
+    feats, used, steady_ms, errs, snaps = [], [], [], [], []
+    real_marg = _record_marg(est, snaps)
+    perf.reset()
+    perf.enable(True)
     at_steady = None
     ops.reset_launch_counts()  # just before the main path
     try:
@@ -919,6 +1192,7 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
             steady = est.solver_flag == NON_LINEAR
             if steady and at_steady is None:
                 at_steady = ops.launch_counts()
+                taken_before, solves_before = est.lm_iterations_taken, est.steady_solves
             if steady:
                 used.append(int(est.f_manager.build_proj_factors(est.dims.N)["valid"].sum()))
             torch.cuda.synchronize()
@@ -932,10 +1206,40 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
             if est.solver_flag == NON_LINEAR:
                 errs.append(np.linalg.norm(est.latest_pose()[1] - world.P[k]))
         counts = ops.launch_counts()  # just after the main path
+        dispatch = _dispatch_without_host_reads(est, dev)
     finally:
         est.close()
+        perf.enable(False)
+    stats = perf.stats()
     ate = float(np.sqrt(np.mean(np.square(errs))))
     steady_counts = {k: counts[k] - (at_steady or counts)[k] for k in counts}
+    # every steady solve runs all its iterations: K1 = K2 = iters + 1, K3 = K4 = iters
+    iters, n_solves = cfg.solver.max_iterations, len(steady_ms)
+    taken = est.lm_iterations_taken - taken_before
+    if est.steady_solves - solves_before != n_solves:
+        raise AssertionError(f"{est.steady_solves - solves_before} solves collected over "
+                             f"{n_solves} steady frames")
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=n_solves * (iters + 1), imu_rows=n_solves * (iters + 1),
+                  schur_corr=n_solves * iters, linstep=n_solves * iters)
+    print(f"[slice] LM iterations over the {n_solves} steady solves: {taken} taken of "
+          f"{n_solves * iters} run (mean {taken / n_solves:.2f} a solve); the "
+          f"{n_solves * iters - taken} after convergence change no bit")
+    if steady_counts != expect:
+        raise AssertionError(f"steady-frame launches {steady_counts} != {expect}")
+    collect = stats.get("est.marg_collect", {})
+    print(f"[slice] the drive's marginalizations on the host CPU (the estimator's "
+          f"placement): est.marg_forward median {stats['est.marg_forward']['median_ms']} ms, "
+          f"est.marg_backward {stats['est.marg_backward']['median_ms']} ms, the frame's wait "
+          f"est.marg_collect median {collect.get('median_ms')} ms, total "
+          f"{collect.get('total_ms')} ms over {collect.get('count')} collects")
+    marg = _time_marg_placements(real_marg, dev, snaps)
+    print(f"[slice] the same {marg['cuda']['n']} marginalizations again, alone, f64 (C10): card "
+          f"forward {marg['cuda']['forward_median_ms']:.2f} / backward "
+          f"{marg['cuda']['backward_median_ms']:.2f} / whole {marg['cuda']['median_ms']:.2f} ms "
+          f"median; CPU {marg['cpu']['forward_median_ms']:.2f} / "
+          f"{marg['cpu']['backward_median_ms']:.2f} / {marg['cpu']['median_ms']:.2f} ms; largest "
+          f"relative gap between the two results {marg['gap']:.3g}")
     print(f"[slice] features/frame mean={np.mean(feats):.1f} min={min(feats)} max={max(feats)}; "
           f"observations used per steady solve mean={np.mean(used):.0f} max={max(used)} "
           f"of N={est.dims.N}")
@@ -956,7 +1260,58 @@ def phase_slice(dev, n_frames=60, n_landmarks=1800, seed=7):
     if not ate < 0.05:
         raise AssertionError(f"est_ate_vio_m={ate} >= 0.05")
     return counts, {"est_steady_median_ms": float(np.median(steady_ms)),
-                    "est_ate_vio_m": ate, "steady_frames": len(steady_ms)}
+                    "est_ate_vio_m": ate, "steady_frames": len(steady_ms),
+                    "lm_iterations_taken": int(taken),
+                    "lm_iterations_run": n_solves * iters,
+                    "marg_collect_median_ms": collect.get("median_ms"),
+                    "marg_collect_total_ms": collect.get("total_ms"),
+                    "marg_cuda_median_ms": marg["cuda"]["median_ms"],
+                    "marg_cpu_median_ms": marg["cpu"]["median_ms"], "marg_placements": marg,
+                    **dispatch}
+
+
+def _dispatch_without_host_reads(est, dev):
+    """One steady solve of the estimator's current window dispatched under
+    torch.cuda.set_sync_debug_mode("error"), so that any host read of the
+    device on the way (an .item(), a blocking copy, a linalg error check)
+    raises: dispatch_steady must return without waiting for the card. Times
+    the dispatch on the host clock beside the solve's stream time (events at
+    its start and end) and the wait in collect()."""
+    import torch
+
+    from isvins_tpu_torch.estimator.estimator import dispatch_steady
+    from isvins_tpu_torch.utils import perf
+
+    was_timing = perf.enabled()
+    perf.enable(True)  # dispatch_steady records its timing events while perf is on
+    try:
+        est._defer_dispatch = True  # build the arguments; this function dispatches them
+        est.dispatch_odometry()
+        args = est._solve_pending["args"]
+        est._solve_pending = None  # never installed: the estimator's state stays as it was
+        run = lambda: dispatch_steady(args, dev, est.dims, est.cfg.solver.max_iterations, False,
+                                      est.noise, float(est.cfg.solver.max_depth))
+        run().collect()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending = run()
+            t1 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pending.collect()
+        t2 = time.perf_counter()
+    finally:
+        perf.enable(was_timing)
+        est._defer_dispatch = False
+    rec = {"dispatch_host_ms": (t1 - t0) * 1e3, "solve_stream_ms": pending.device_ms(),
+           "collect_wait_ms": (t2 - t1) * 1e3, "dispatch_iterations": int(pending.iterations)}
+    print(f"[slice] dispatch_steady under set_sync_debug_mode('error'): no host read; host "
+          f"{rec['dispatch_host_ms']:.2f} ms to return, the solve's stream "
+          f"{rec['solve_stream_ms']:.2f} ms from upload to download, then "
+          f"{rec['collect_wait_ms']:.2f} ms waited in collect()")
+    return rec
 
 
 def posegraph_config():
@@ -1386,10 +1741,11 @@ def phase_multiseq_solve(dev, solve_fps, chol_ms):
     print(f"[multiseq] NB={NB}: a second run of the batched solve differs by {rerun:.3g}")
     if rerun != 0.0:
         raise AssertionError(f"two runs of the same batched solve differ by {rerun}")
-    it = info["iterations"]
+    it = 10  # every iteration runs
     expect = dict.fromkeys(counts, 0)
     expect.update(proj_rows=it + 1, imu_rows=it + 1, chol_solve_batched=it)
-    print(f"[multiseq] NB={NB} dims={tuple(dims)} iterations={it} launches={counts} "
+    print(f"[multiseq] NB={NB} dims={tuple(dims)} iterations taken per sequence "
+          f"{info['sequence_iterations'].tolist()} of {it} run; launches={counts} "
           f"expected={expect}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -1595,6 +1951,7 @@ def main():
                                          records["chol_solve_batched"]["ms"])
     est_counts, ms_est = phase_multiseq_estimators(dev)
     red_counts = phase_reduce(dev)
+    nullspace = nullspace_cost(dev)  # its host times before phase_profiler's tracing
     phase_profiler(dev, records)
     # K5's launches are the multiseq path's (both halves), K7's its own
     # path's, the others' the posegraph path's
@@ -1602,7 +1959,7 @@ def main():
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
-                      "multiseq": {**ms, **ms_est}}))
+                      "multiseq": {**ms, **ms_est}, "nullspace": nullspace}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],

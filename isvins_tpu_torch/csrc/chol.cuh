@@ -9,8 +9,15 @@
 // shared-memory bandwidth (128 bytes a cycle), not flops (~D^3/6 = 3.5 M
 // FMAs at D = 276, 16 us of one SM's FP32 lanes) or device memory. The design:
 //
-// - Storage: the lower triangle as 16 x 16 tiles in dynamic shared memory,
-//   tile (I, J), I >= J, at number I(I+1)/2 + J, 256 floats each. D is
+// - Storage: the lower triangle as 16 x 16 tiles, tile (I, J), I >= J, at
+//   number I(I+1)/2 + J, 256 floats each, in dynamic shared memory where
+//   they fit one block's 232,448 B (D <= 320, the shared route), else in a
+//   scratch of device memory that the wrapper allocates, one region per
+//   problem (the global route: 0.47 MB at D = 486, resident in the 50 MB
+//   L2); the vectors stay in shared memory either way. Every routine below
+//   takes the tiles through a plain pointer, so one code serves both
+//   routes, and each kernel is instantiated for each (the shared one as
+//   before, with shared-memory loads). D is
 //   padded to Dp = 16 T with the identity (diagonal 1, 0 elsewhere), so
 //   padded pivots stay 1 and padded x stays 0. Within a tile, the four
 //   16-byte chunks of row r are stored in the order chunk ^ ((r / 4) % 4)
@@ -42,11 +49,15 @@
 #define CHOL_NB 16        // tile edge
 #define CHOL_THREADS 512  // threads of a block running the routine
 #define CHOL_MISC 64      // floats after the tiles and vectors: block sums and the flag
+#define CHOL_SMEM_LIMIT 232448  // bytes of shared memory one block may use (H100)
 
 // The layout for D unknowns in tiles of nb: the same numbers as
 // ops/chol_batched.chol_plan (chip_smoke.py holds the two against each other).
+// smem_bytes is the dynamic shared memory a block is launched with;
+// scratch_floats the device-memory scratch of one problem (0: the shared
+// route, the tiles in shared memory).
 struct CholPlan {
-  int nb, Dp, T, tiles, smem_bytes;
+  int nb, Dp, T, tiles, smem_bytes, scratch_floats;
 };
 
 __host__ __device__ inline CholPlan chol_plan(int D) {
@@ -55,9 +66,28 @@ __host__ __device__ inline CholPlan chol_plan(int D) {
   p.T = (D + CHOL_NB - 1) / CHOL_NB;
   p.Dp = p.T * CHOL_NB;
   p.tiles = p.T * (p.T + 1) / 2;
-  // tiles, then vec (rhs -> y -> x) and aux (Dp each), then CHOL_MISC
-  p.smem_bytes = (p.tiles * CHOL_NB * CHOL_NB + 2 * p.Dp + CHOL_MISC) * (int)sizeof(float);
+  // [tiles], then vec (rhs -> y -> x) and aux (Dp each), then CHOL_MISC
+  const int vectors = (2 * p.Dp + CHOL_MISC) * (int)sizeof(float);
+  const int tiles = p.tiles * CHOL_NB * CHOL_NB * (int)sizeof(float);
+  const bool shared = tiles + vectors <= CHOL_SMEM_LIMIT;
+  p.smem_bytes = shared ? tiles + vectors : vectors;
+  p.scratch_floats = shared ? 0 : p.tiles * CHOL_NB * CHOL_NB;
   return p;
+}
+
+// The tiles of problem n: the start of dynamic shared memory on the shared
+// route, its region of the scratch on the global route (GLOBAL is a
+// template argument of the kernels, so the shared route keeps shared-memory
+// addressing); the vectors follow the tiles in shared memory, or start it.
+template <bool GLOBAL>
+__device__ __forceinline__ float* chol_tiles_of(float* sm, float* scratch, const CholPlan& plan,
+                                                int n) {
+  return GLOBAL ? scratch + (size_t)n * plan.scratch_floats : sm;
+}
+
+template <bool GLOBAL>
+__device__ __forceinline__ float* chol_vectors_of(float* sm, const CholPlan& plan) {
+  return GLOBAL ? sm : sm + plan.tiles * CHOL_NB * CHOL_NB;
 }
 
 __device__ __forceinline__ float* chol_tile(float* tiles, int I, int J) {
@@ -287,20 +317,18 @@ __device__ __forceinline__ void chol_diag_apply(const float* Li, float* vp, int 
 
 // Solve L L^T x = vec in place (vec: rhs -> y -> x, Dp = 16 T entries, zero
 // in the padding) after chol_factor_tiles left *bad == 0; all threads call
-// it. One barrier per panel each way: thread t updates one row with the
-// panel's solved block, and warp 0, whose lanes 0-15 own the next block's
-// rows, goes on to solve that block before the barrier (Dp - 16 <=
-// CHOL_THREADS rows for every D whose tiles fit shared memory, D <= 320).
-// Ends on a barrier.
+// it. One barrier per panel each way: thread t updates rows t, t + blockDim,
+// ... with the panel's solved block, and warp 0, whose lanes 0-15 own the
+// next block's rows (their first), goes on to solve that block before the
+// barrier. Ends on a barrier.
 __device__ __forceinline__ void chol_solve_tiles(float* tiles, float* vec, int T) {
-  const int tid = threadIdx.x, lane = tid & 31, Dp = T * CHOL_NB;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, Dp = T * CHOL_NB;
   // forward: y_p = Linv_pp r_p, then r_i -= L_ip y_p for every row below
   if (tid < 32) chol_diag_apply<false>(chol_tile(tiles, 0, 0), vec, lane);
   __syncthreads();
   for (int p = 0; p < T - 1; ++p) {
     const float* yp = vec + p * CHOL_NB;
-    const int i = (p + 1) * CHOL_NB + tid;
-    if (i < Dp) {
+    for (int i = (p + 1) * CHOL_NB + tid; i < Dp; i += nt) {
       const float* L = chol_tile(tiles, i / CHOL_NB, p);
       const int ri = i % CHOL_NB;
       float l[CHOL_NB], y[CHOL_NB];
@@ -325,8 +353,8 @@ __device__ __forceinline__ void chol_solve_tiles(float* tiles, float* vec, int T
   __syncthreads();
   for (int p = T - 1; p > 0; --p) {
     const float* xp = vec + p * CHOL_NB;
-    const int i = p * CHOL_NB - 1 - tid;  // warp 0's lanes 0-15: the block p - 1
-    if (i >= 0) {
+    // warp 0's lanes 0-15 first: the block p - 1
+    for (int i = p * CHOL_NB - 1 - tid; i >= 0; i -= nt) {
       const float* L = chol_tile(tiles, p, i / CHOL_NB);
       const int ri = i % CHOL_NB;
       float l[CHOL_NB], x[CHOL_NB];

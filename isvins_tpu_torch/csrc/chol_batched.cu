@@ -9,8 +9,9 @@
 // TPU kernel advances all NB problems in one program, the batch riding the
 // sublanes; a GPU has 132 SMs, so here every problem gets its own thread
 // block and the NB factorizations run side by side on NB SMs (one block per
-// SM: 177,664 B of dynamic shared memory at D = 276 in tiles of 16). Each
-// block copies its H into the tiles of chol.cuh (shared with K4) with
+// SM: 177,664 B of dynamic shared memory at D = 276 in tiles of 16; above
+// D = 320 the tiles live in a device-memory scratch, a region per problem).
+// Each block copies its H into the tiles of chol.cuh (shared with K4) with
 // identity padding, factors and solves, and writes its x.
 //
 // A pivot that is not > 0 (H[n] not SPD, or NaN) makes x[n] all NaN, as the
@@ -24,13 +25,14 @@
 // (NB (D^3/3 + 2 D^2)) or device memory.
 #include "chol.cuh"
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(CHOL_THREADS)
     chol_solve_batched_kernel(const float* __restrict__ H, const float* __restrict__ b,
-                              float* __restrict__ x, int D) {
+                              float* __restrict__ x, float* scratch, int D) {
   extern __shared__ __align__(16) float sm[];
   const CholPlan plan = chol_plan(D);
-  float* tiles = sm;
-  float* vec = tiles + plan.tiles * CHOL_NB * CHOL_NB;  // b -> y -> x, Dp
+  float* tiles = chol_tiles_of<GLOBAL>(sm, scratch, plan, blockIdx.x);
+  float* vec = chol_vectors_of<GLOBAL>(sm, plan);        // b -> y -> x, Dp
   int* bad = reinterpret_cast<int*>(vec + 2 * plan.Dp);  // after the unused aux vector
 
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -48,23 +50,36 @@ __global__ void __launch_bounds__(CHOL_THREADS)
   for (int i = tid; i < D; i += nt) xn[i] = *bad ? nanf("") : vec[i];
 }
 
-ISV_EXPORT int isv_chol_solve_batched(const float* H, const float* b, float* x, int NB, int D,
-                                      void* stream) {
-  const int smem = chol_plan(D).smem_bytes;
+template <bool GLOBAL>
+static cudaError_t launch_chol_batched(const float* H, const float* b, float* x, float* scratch,
+                                      int NB, int D, int smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      chol_solve_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  chol_solve_batched_kernel<<<NB, CHOL_THREADS, smem, (cudaStream_t)stream>>>(H, b, x, D);
-  return (int)cudaGetLastError();
+      chol_solve_batched_kernel<GLOBAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  chol_solve_batched_kernel<GLOBAL><<<NB, CHOL_THREADS, smem, st>>>(H, b, x, scratch, D);
+  return cudaGetLastError();
 }
 
-// The layout chol_plan gives D, as four ints (nb, Dp, tiles, smem_bytes)
-// into `out` (host memory), for the check that the Python plan is the same.
-// Launches nothing; the stream argument, which every entry point takes, is
-// unused.
+// `scratch`: NB * chol_plan(D).scratch_floats floats of device memory where
+// the plan takes the global route, else unused (may be null).
+ISV_EXPORT int isv_chol_solve_batched(const float* H, const float* b, float* x, float* scratch,
+                                      int NB, int D, void* stream) {
+  const CholPlan plan = chol_plan(D);
+  if (plan.scratch_floats > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(plan.scratch_floats > 0
+                   ? launch_chol_batched<true>(H, b, x, scratch, NB, D, plan.smem_bytes, st)
+                   : launch_chol_batched<false>(H, b, x, scratch, NB, D, plan.smem_bytes, st));
+}
+
+// The layout chol_plan gives D, as five ints (nb, Dp, tiles, smem_bytes,
+// scratch_floats) into `out` (host memory), for the check that the Python
+// plan is the same. Launches nothing; the stream argument, which every
+// entry point takes, is unused.
 ISV_EXPORT int isv_chol_plan(int D, int* out, void* stream) {
   (void)stream;
   const CholPlan p = chol_plan(D);
   out[0] = p.nb, out[1] = p.Dp, out[2] = p.tiles, out[3] = p.smem_bytes;
+  out[4] = p.scratch_floats;
   return 0;
 }

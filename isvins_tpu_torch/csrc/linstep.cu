@@ -26,7 +26,8 @@
 // straight into the tiles of chol.cuh (blocked Cholesky: 18 panels of 16 at
 // D = 276, two barriers each, register-tiled trailing updates, the next
 // diagonal tile factored ahead; solves by tile rows in one warp), the
-// routine K5 (chol_batched.cu) shares.
+// routine K5 (chol_batched.cu) shares: in shared memory up to D = 320, in
+// a device-memory scratch from the wrapper above (chol_plan's route).
 #include "chol.cuh"
 
 __device__ __forceinline__ int reduced_index(int i, int n_pose, int ex0) {
@@ -35,15 +36,16 @@ __device__ __forceinline__ int reduced_index(int i, int n_pose, int ex0) {
   return -1;
 }
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(CHOL_THREADS)
     linstep_chol_kernel(const float* __restrict__ H, const float* __restrict__ b,
                         const float* __restrict__ C, const float* __restrict__ cb,
-                        const float* __restrict__ lam, float* __restrict__ dx, int D,
-                        int n_pose, int Dr) {
+                        const float* __restrict__ lam, float* __restrict__ dx,
+                        float* scratch, int D, int n_pose, int Dr) {
   extern __shared__ __align__(16) float sm[];
   const CholPlan plan = chol_plan(D);
-  float* tiles = sm;
-  float* vec = tiles + plan.tiles * CHOL_NB * CHOL_NB;  // b_s -> y -> dx, Dp
+  float* tiles = chol_tiles_of<GLOBAL>(sm, scratch, plan, 0);
+  float* vec = chol_vectors_of<GLOBAL>(sm, plan);  // b_s -> y -> dx, Dp
   float* aux = vec + plan.Dp;                           // damped diagonal, Dp
   float* red = aux + plan.Dp;                           // 32 warp sums
   float* s_tr = red + 32;
@@ -116,18 +118,35 @@ __global__ void linstep_dl_kernel(const float* __restrict__ W, const float* __re
   }
 }
 
+template <bool GLOBAL>
+static cudaError_t launch_linstep_chol(const float* H, const float* b, const float* C,
+                                      const float* cb, const float* lam, float* dx,
+                                      float* scratch, int D, int n_pose, int Dr, int smem,
+                                      cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(linstep_chol_kernel<GLOBAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  linstep_chol_kernel<GLOBAL><<<1, CHOL_THREADS, smem, st>>>(H, b, C, cb, lam, dx, scratch, D,
+                                                            n_pose, Dr);
+  return cudaGetLastError();
+}
+
 // (ii) + (iii); the caller launches (i) K3 first on the same stream.
+// `scratch`: chol_plan(D).scratch_floats floats of device memory where the
+// plan takes the global route, else unused (may be null).
 ISV_EXPORT int isv_linstep_solve(const float* H, const float* b, const float* C, const float* cb,
                                  const float* W, const float* h, const float* bl,
-                                 const float* lam, float* dx, float* dl, int D, int F, int Dr,
-                                 int n_pose, void* stream) {
+                                 const float* lam, float* dx, float* dl, float* scratch, int D,
+                                 int F, int Dr, int n_pose, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = chol_plan(D).smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(linstep_chol_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  linstep_chol_kernel<<<1, CHOL_THREADS, smem, st>>>(H, b, C, cb, lam, dx, D, n_pose, Dr);
-  err = cudaGetLastError();
+  const CholPlan plan = chol_plan(D);
+  if (plan.scratch_floats > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      plan.scratch_floats > 0
+          ? launch_linstep_chol<true>(H, b, C, cb, lam, dx, scratch, D, n_pose, Dr,
+                                      plan.smem_bytes, st)
+          : launch_linstep_chol<false>(H, b, C, cb, lam, dx, scratch, D, n_pose, Dr,
+                                       plan.smem_bytes, st);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const int blocks = (F * 32 + threads - 1) / threads;

@@ -31,3 +31,11 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_const(values, dtype, device) -> torch.Tensor:
+    """A small constant on `device` without a host sync: made on the host
+    and copied with non_blocking=True (a copy from pageable memory is staged
+    at once, so the calling thread does not wait for the device, where a
+    blocking copy, as torch.tensor(..., device=cuda) makes, synchronizes)."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)

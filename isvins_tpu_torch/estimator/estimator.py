@@ -8,8 +8,9 @@ runs on the estimator's device:
 - the steady-state solve `steady_solve` in f32 (DLT depth seeding,
   preintegration, then solve_window through kernels K1-K4), its inputs moved
   once per frame (pinned host buffers, non-blocking copies);
-- the init BA, the init scale scan, triangulation and marginalization in
-  f64 on the same device (the H100 has native f64).
+- the init BA, the init scale scan and triangulation in f64 on the same
+  device (the H100 has native f64); the f64 marginalization on the host
+  CPU, where it runs faster than on the card.
 
 `solve_async=True` pipelines the steady solve across frames
 (dispatch_odometry / collect_solve): the solve is launched on a side CUDA
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
-from ..device import resolve_device
+from ..device import device_const, resolve_device
 from ..factors import ImuNoise, integrate_segment
 from ..factors.priors import relpose_update_np, rollpitch_update_np, se3_prior_update_np
 from ..geom import hostmath as hm
@@ -87,29 +88,80 @@ def to_device(tree, device, dtype=None):
     return from_numpy_tree(tree_map(pin, tree), device)
 
 
+# the three rounds of a cyclic Jacobi sweep of a 4x4, two disjoint pairs
+# (p, q) each
+_JACOBI_ROUNDS = (((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0, 3), (1, 2)))
+
+
+def _jacobi_consts(dtype, device):
+    """Per round, on `device`: the rows and columns of a_pp, a_qq and a_pq
+    of both pairs, and the (4, 16) map of both pairs' (c, s) to the
+    rotation's entries (J_pp = J_qq = c, J_pq = s, J_qp = -s)."""
+    rows, cols = [], []
+    to_j = np.zeros((len(_JACOBI_ROUNDS), 4, 16))
+    for r, pairs in enumerate(_JACOBI_ROUNDS):
+        (p0, q0), (p1, q1) = pairs
+        rows.append([p0, p1, q0, q1, p0, p1])
+        cols.append([p0, p1, q0, q1, q0, q1])
+        for i, (p, q) in enumerate(pairs):
+            to_j[r, i, 5 * p] = to_j[r, i, 5 * q] = 1.0
+            to_j[r, 2 + i, 4 * p + q], to_j[r, 2 + i, 4 * q + p] = 1.0, -1.0
+    return device_const([rows, cols], torch.int64, device), device_const(to_j, dtype, device)
+
+
+def min_eigvec_sym4(G, sweeps: int = 4):
+    """The unit eigenvector of the smallest eigenvalue of each symmetric 4x4
+    matrix of G (..., 4, 4), up to sign, by cyclic Jacobi: `sweeps` sweeps
+    of three rounds, each round's two disjoint rotations made together
+    (Numerical Recipes' angle, the smaller one) and applied as one
+    orthogonal matrix J, A <- J^T A J: 18 device operations a round. A fixed
+    count and no branch on the data, so nothing is read on the host
+    (torch.linalg.eigh reads its error flags on the host on CUDA); Jacobi
+    converges quadratically, and four sweeps of a 4x4 reach the rounding of
+    its type (on the matrices of tests/test_torch_estimator.py a fifth sweep
+    moves the f32 error not at all and the f64 error by under 1e-15)."""
+    idx, to_j = _jacobi_consts(G.dtype, G.device)
+    rounds = [(idx[0, r], idx[1, r], to_j[r]) for r in range(len(_JACOBI_ROUNDS))]
+    A = G
+    V = torch.eye(4, dtype=G.dtype, device=G.device).expand(G.shape)
+    for _ in range(sweeps):
+        for rows, cols, to_j_r in rounds:
+            a = A[..., rows, cols]  # a_pp, a_qq, a_pq of both pairs
+            d, two = a[..., 2:4] - a[..., 0:2], 2.0 * a[..., 4:6]
+            # t = sgn(theta) / (|theta| + sqrt(theta^2 + 1)), theta = d / two;
+            # 0 where the entry is 0 (0 / 0 when d is 0 too)
+            t = torch.nan_to_num(two / (d + torch.copysign(torch.hypot(d, two), d)), nan=0.0)
+            c = torch.rsqrt(t * t + 1.0)
+            J = (torch.cat([c, t * c], dim=-1) @ to_j_r).reshape(G.shape)
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    k = torch.diagonal(A, dim1=-2, dim2=-1).argmin(dim=-1)
+    return torch.gather(V, -1, k[..., None, None].expand(V.shape[:-1] + (1,)))[..., 0]
+
+
 def device_triangulate(st: WindowState, obs, has_obs, start):
     """Masked multi-view DLT depth seeding on the device, (F,) metric depths
     (garbage where a track has < 2 observations; the caller masks). The
     nullspace is the eigenvector of the smallest eigenvalue of the 4x4 Gram
-    matrix — f32-safe and batched over all tracks. Every argument may carry
-    the same leading sequence axes."""
+    matrix (min_eigvec_sym4: f32-safe, batched over all tracks, no host
+    read). Every argument may carry the same leading sequence axes."""
     from .feature_manager import _dlt_systems
 
     A = _dlt_systems(obs, has_obs, start.long(), st.P, st.Q, st.tic, st.qic)
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
-    v = V[..., :, 0]
+    v = min_eigvec_sym4(A.transpose(-1, -2) @ A)
     v3 = v[..., 3]
     return v[..., 2] / torch.where(v3.abs() > 1e-12, v3, torch.full_like(v3, 1e-12))
 
 
 def steady_solve(st: WindowState, im_raw, tri, pr: ProjFactors, pri: PriorState, g, ps,
                  dims: WindowDims, iters: int, estimate_extrinsic: bool, noise: ImuNoise,
-                 max_depth: float):
+                 max_depth: float, info: dict | None = None):
     """The steady-state frame solve, all on the device: seed fresh landmark
     depths by masked DLT, preintegrate every segment at the in-state bias,
     then run the window LM (JAX `_steady_solve`, estimator.py:603-619). With
     a leading sequence axis on every leaf it is the batched solve of several
-    estimators' windows (solve_window_batched)."""
+    estimators' windows (solve_window_batched). Reads nothing on the host;
+    `info` receives the solve's iteration counts (device tensors)."""
     obs, has_obs, start, need = tri
     d = device_triangulate(st, obs, has_obs, start)
     ok = torch.isfinite(d) & (d > 0.1)
@@ -121,29 +173,41 @@ def steady_solve(st: WindowState, im_raw, tri, pr: ProjFactors, pri: PriorState,
     im = ImuFactors.create(pre=pre, valid=valid)
     solve = solve_window if st.P.dim() == 2 else solve_window_batched
     return solve(st, im, pr, pri, g, ps, dims, iters=iters,
-                 estimate_extrinsic=estimate_extrinsic)
+                 estimate_extrinsic=estimate_extrinsic, info=info)
 
 
 class PendingSolve:
     """A dispatched, not yet collected steady solve (one window, or a batch
     with a leading sequence axis). On the card the solve ran on a stream of
-    its own and copied (state, cost) into pinned host buffers there;
-    `collect()` waits on that stream's event and returns them as f64 numpy
-    (the host state's type). `row(k)` is the same for sequence k of a
-    batch."""
+    its own and copied (state, cost) and the iterations each sequence took
+    into pinned host buffers there; `collect()` waits on that stream's event
+    and returns (state, cost) as f64 numpy (the host state's type), after
+    which `iterations` holds the iteration counts (numpy int64) and, when
+    utils.perf was on at the dispatch, `device_ms()` the stream's time from
+    the start of the upload to the end of the download. `row(k)` is the same
+    for sequence k of a batch."""
 
-    def __init__(self, outputs, event=None):
+    def __init__(self, outputs, iterations, event=None, start=None):
         self._outputs = outputs  # (WindowState, cost), host tensors
+        self._iterations = iterations
         self._event = event
+        self._start = start
         self._host = None
+        self.iterations = None
 
     def collect(self):
         if self._host is None:
             if self._event is not None:
                 self._event.synchronize()
             self._host = tree_map(lambda o: o.numpy().astype(np.float64), self._outputs)
-            self._outputs = None
+            self.iterations = self._iterations.numpy().astype(np.int64)
+            self._outputs = self._iterations = None
         return self._host
+
+    def device_ms(self):
+        """The solve's stream time (upload, solve, download) after collect();
+        None on the CPU or when it was not timed."""
+        return None if self._start is None else self._start.elapsed_time(self._event)
 
     def row(self, k: int) -> "_PendingRow":
         return _PendingRow(self, k)
@@ -154,6 +218,11 @@ class _PendingRow:
         self._batch = batch
         self._k = k
 
+    @property
+    def iterations(self):
+        its = self._batch.iterations
+        return None if its is None else its[self._k]
+
     def collect(self):
         return tree_map(lambda a: a[self._k], self._batch.collect())
 
@@ -162,33 +231,43 @@ def dispatch_steady(args, device, dims: WindowDims, iters: int, estimate_extrins
                     noise: ImuNoise, max_depth: float) -> PendingSolve:
     """Upload the host argument tree of steady_solve (as f32, the steady
     path's type), run the solve and start the download of its outputs,
-    without waiting for them. On the card
-    all three go to a new stream from the calling thread (the kernel
-    launches take the thread's current stream), and every tensor of the solve
+    without waiting for them: nothing on the way reads the device on the
+    host. On the card all three go to a new stream from the calling thread
+    (the kernel launches take the thread's current stream), between two
+    timing events while utils.perf is on, and every tensor of the solve
     lives until the stream's event through that stream's allocator; on the
     CPU the solve simply runs here."""
     def run():
+        info = {}
         st, im_raw, tri, pr, pri, g, ps = to_device(args, device, torch.float32)
-        return steady_solve(st, im_raw, tri, pr, pri, g, ps, dims, iters, estimate_extrinsic,
-                            noise, max_depth)
+        out = steady_solve(st, im_raw, tri, pr, pri, g, ps, dims, iters, estimate_extrinsic,
+                           noise, max_depth, info)
+        return out, info["sequence_iterations"]
 
     if device.type != "cuda":
-        return PendingSolve(run())
-    stream = torch.cuda.Stream(device)
+        return PendingSolve(*run())
+    stream, timed = torch.cuda.Stream(device), perf.enabled()
     with torch.cuda.stream(stream):
-        outs = tree_map(
+        start = torch.cuda.Event(enable_timing=True) if timed else None
+        if timed:
+            start.record(stream)
+        outs, its = tree_map(
             lambda o: torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
                 o, non_blocking=True), run())
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=timed)
         event.record(stream)
-    return PendingSolve(outs, event)
+    return PendingSolve(outs, its, event, start)
 
 
 class Estimator:
     def __init__(self, cfg: EngineConfig, dims: Optional[WindowDims] = None,
                  device=None, solve_async: bool = False):
         """`device`: where the numeric work runs (None: the CUDA card; the
-        CPU only on `device="cpu"`).
+        CPU only on `device="cpu"`), but for the f64 marginalization, which
+        runs on the host CPU, as the reference places it:
+        its small f64 algebra is bound by launches on the card (on an H100
+        one job took 81.5 ms there against 34.3 ms on the CPU, chip_smoke.py's
+        slice phase).
 
         `solve_async=True` pipelines the steady-state window solve across
         frames: process_image DISPATCHES the device solve and returns; the
@@ -219,6 +298,10 @@ class Estimator:
         self._marg_exec = None  # lazy ThreadPoolExecutor(1)
         self._marg_future = None
         self._marg_job_extra = None
+        # the steady solves collected and the LM iterations they took before
+        # converging (each runs cfg.solver.max_iterations), read after collect
+        self.steady_solves = 0
+        self.lm_iterations_taken = 0
         self.clear_state()
 
     def _new_feature_manager(self):
@@ -399,9 +482,10 @@ class Estimator:
             dep=self.f_manager.depth_vector(),
         )
 
-    def _integrate(self, dts, accs, gyrs, acc0, gyr0, ba, bg):
-        """f64 preintegration on the device of host buffers."""
-        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=self.device)
+    def _integrate(self, dts, accs, gyrs, acc0, gyr0, ba, bg, device=None):
+        """f64 preintegration of host buffers on `device` (the estimator's)."""
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                      device=device or self.device)
         return integrate_segment(t(dts), t(accs), t(gyrs), t(acc0), t(gyr0), t(ba), t(bg),
                                  self.noise)
 
@@ -453,10 +537,12 @@ class Estimator:
                     (state, self._raw_imu_factors(), self._tri_inputs(), proj, priors,
                      self.G, psi), dev, dtype)
             with perf.phase("est.solve_device"):
+                info = {}
                 new_state, cost = steady_solve(
                     st, im_raw, tri, pr, pri, g, ps, self.dims, iters, ee, self.noise,
-                    float(self.cfg.solver.max_depth))
+                    float(self.cfg.solver.max_depth), info)
                 new_state, cost = to_numpy_tree(new_state), float(cost)
+                self._count_iterations(int(info["iterations"]))
         else:
             imu_f = self._imu_factors()
             st, pr, pri, g, ps = from_numpy_tree(
@@ -467,6 +553,10 @@ class Estimator:
 
         self._install_solution(new_state, cost, old_P[0], old_Q[0])
         return pf
+
+    def _count_iterations(self, taken: int):
+        self.steady_solves += 1
+        self.lm_iterations_taken += taken
 
     def _install_solution(self, new_state: WindowState, cost: float, P0_old, Q0_old):
         """Re-anchor a solved window (host numpy tree) and make it the state."""
@@ -657,6 +747,7 @@ class Estimator:
             p["handle"] = self._dispatch_steady(p["args"])
         with perf.phase("est.solve_collect"):
             new_state, cost = p["handle"].collect()
+        self._count_iterations(int(p["handle"].iterations))
         old = p["old"]
         self._install_solution(new_state, float(cost), old[0][0], old[1][0])
         self.marginalization_flag = p["marg_flag"]
@@ -795,17 +886,18 @@ class Estimator:
         return (state, pr, mp_i, mp_j, mf, mv, np.asarray(psi),
                 float(self.Headers[0]), imu_seg, np.asarray(G))
 
-    def _marg_compute(self, state, pr, mp_i, mp_j, mf, mv, psi, header0, imu_seg, G):
-        """Pure compute half (marg worker thread or inline), f64 on the
-        device: no estimator state is read or written."""
+    def _marg_compute(self, state, pr, mp_i, mp_j, mf, mv, psi, header0, imu_seg, G,
+                      device="cpu"):
+        """Pure compute half (marg worker thread or inline), f64 on `device`
+        (the host CPU unless asked): no estimator state is read or written."""
         Vo = self.dims.Vo
         st, pri, mpi, mpj, mfi, mva, g = from_numpy_tree(
-            (state, pr, mp_i, mp_j, mf, mv, G), self.device, torch.float64)
+            (state, pr, mp_i, mp_j, mf, mv, G), device, torch.float64)
         with perf.phase("est.marg_forward"):
             fwd = to_numpy_tree(marg_forward(st, pri, mpi, mpj, mfi, mva, float(psi),
                                              self.cfg.solver.alpha, header0))
         with perf.phase("est.marg_backward"):
-            pre_ij = self._integrate(*imu_seg)
+            pre_ij = self._integrate(*imu_seg, device=device)
             back = to_numpy_tree(marg_backward(st, pre_ij, pri, g, Vo=Vo,
                                                alpha=self.cfg.solver.alpha))
         return fwd, back

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_const
 from ..geom import quat_to_mat
 
 
@@ -402,7 +403,7 @@ def _dlt_systems(obs, has_obs, start, P, Q, tic, qic):
     Pm = torch.cat([Pl, Pt[..., None]], dim=-1)  # (n,B,3,4)
     # sanitize BEFORE the normalize: unobserved rows are zero-padded and
     # 0/0 -> NaN would poison the system through the mask (NaN * 0 = NaN)
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=obs.dtype, device=obs.device)
+    unit_z = device_const([0.0, 0.0, 1.0], obs.dtype, obs.device)
     o = torch.where(has_obs[..., None], obs, unit_z)
     f = o / torch.linalg.norm(o, dim=-1, keepdim=True)
     row0 = f[..., 0:1] * Pm[..., 2, :] - f[..., 2:3] * Pm[..., 0, :]

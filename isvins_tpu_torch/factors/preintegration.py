@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import device_const
 from ..geom import (
     quat_conj,
     quat_mul,
@@ -50,11 +51,11 @@ class ImuNoise(NamedTuple):
                         float(noise_cfg.acc_w), float(noise_cfg.gyr_w))
 
     def block_diag18(self, dtype, device=None) -> torch.Tensor:
-        d = torch.tensor(
+        d = device_const(
             [self.acc_n ** 2] * 3 + [self.gyr_n ** 2] * 3
             + [self.acc_n ** 2] * 3 + [self.gyr_n ** 2] * 3
             + [self.acc_w ** 2] * 3 + [self.gyr_w ** 2] * 3,
-            dtype=dtype, device=device,
+            dtype, device,
         )
         return torch.diag(d)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_const
 from ..geom import (
     quat_conj,
     quat_log,
@@ -73,7 +74,7 @@ def linear9_residual_jacobians(vb_meas, V, Ba, Bg):
 
 # ---------------------------------------------------------------- roll-pitch
 def _nz(Qi):
-    return torch.tensor([0.0, 0.0, -1.0], dtype=Qi.dtype, device=Qi.device).expand(
+    return device_const([0.0, 0.0, -1.0], Qi.dtype, Qi.device).expand(
         Qi.shape[:-1] + (3,))
 
 

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "isv_proj_rows": "p" * 14 + "ii",
     "isv_imu_rows": "p" * 20 + "ii",
     "isv_schur_corr": "p" * 6 + "i" * 6,
-    "isv_linstep_solve": "p" * 10 + "iiii",
-    "isv_chol_solve_batched": "ppp" + "ii",
+    "isv_linstep_solve": "p" * 11 + "iiii",
+    "isv_chol_solve_batched": "pppp" + "ii",
     "isv_chol_plan": "ip",
     "isv_retrieval_scores": "p" * 5 + "ii",
     "isv_schur_reduce": "p" * 7 + "i" * 6,

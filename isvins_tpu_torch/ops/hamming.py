@@ -52,7 +52,9 @@ def retrieval_scores_ref(qd, qv, dbd, dbv, thresh: int):
 def retrieval_scores(qd, qv, dbd, dbv, thresh: int):
     """Kernel wrapper with retrieval_scores_ref's signature and return. CPU
     tensors take the plain version; CUDA tensors launch the kernel (R = 64
-    descriptors per keyframe, the database's subsample) or raise."""
+    descriptors per keyframe, the database's subsample; the distances from
+    popc(a & b) of every pair on the tensor cores, binary wgmma, exact) or
+    raise."""
     if not dbd.is_cuda:
         return retrieval_scores_ref(qd, qv, dbd, dbv, thresh)
     dev = dbd.device
@@ -63,6 +65,8 @@ def retrieval_scores(qd, qv, dbd, dbv, thresh: int):
     check(qv, "qv", (R,), torch.bool, dev)
     check(dbd, "dbd", (K, R, 8), torch.int32, dev)
     check(dbv, "dbv", (K, R), torch.bool, dev)
+    # the kernel copies dbd and dbv in 16-byte chunks by cp.async
+    qd, dbd, dbv = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (qd, dbd, dbv))
     scores = torch.empty((K,), dtype=torch.float32, device=dev)
     launch("isv_retrieval_scores", qd, qv, dbd, dbv, scores, K, int(thresh), device=dev)
     retrieval_scores.launches += 1

@@ -23,7 +23,7 @@ import torch
 from ..factors.preintegration import cholesky_nan
 from . import schur
 from ._lib import check, launch
-from .chol_batched import checked_plan, chol_solve_batched, chol_solve_batched_ref
+from .chol_batched import checked_plan, chol_scratch, chol_solve_batched, chol_solve_batched_ref
 
 
 def linstep_ref(H, b, W, h, b_l, lam, n_pose, D):
@@ -70,11 +70,11 @@ def linstep(H, b, W, h, b_l, lam, n_pose: int):
     check(lam, "lam", (), device=dev)
     if not 0 < n_pose <= Dr <= D:
         raise ValueError(f"linstep: bad layout n_pose={n_pose} Dr={Dr} D={D}")
-    checked_plan(D, "linstep")
+    plan = checked_plan(D, "linstep")
     C, c_b = schur._launch(W, h, b_l, lam)
     dx = torch.empty((D,), dtype=torch.float32, device=dev)
     dl = torch.empty((F,), dtype=torch.float32, device=dev)
-    launch("isv_linstep_solve", H, b, C, c_b, W, h, b_l, lam, dx, dl,
+    launch("isv_linstep_solve", H, b, C, c_b, W, h, b_l, lam, dx, dl, chol_scratch(plan, 1, dev),
            D, F, Dr, n_pose, device=dev)
     linstep.launches += 1
     return dx, dl

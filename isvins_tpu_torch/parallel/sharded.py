@@ -42,7 +42,8 @@ def sharded_batch_solve(devices, dims: WindowDims, iters: int = 10):
     `step(state, imu, proj, priors, G, psi, info=None)` solves the batch with
     solve_window_batched and returns (state, cost (NB,)); G (3,) and psi ()
     serve every sequence, as in the reference. `info`, when given, receives
-    the LM iterations run (the most of any chunk). With several devices the
+    solve_window_batched's `iterations` (the most any sequence took) and
+    `sequence_iterations`, on devices[0]. With several devices the
     four trees are plain (sharded here) or the lists shard_leading made;
     every chunk is solved on its own device, with no communication, and the
     results are concatenated on devices[0]."""
@@ -67,8 +68,10 @@ def sharded_batch_solve(devices, dims: WindowDims, iters: int = 10):
         infos = [{} for _ in devices]
         outs = [solve_window_batched(*sh, G.to(dev), psi.to(dev), dims, iters=iters, info=i)
                 for sh, dev, i in zip(zip(*shards), devices, infos)]
-        if info is not None:
-            info["iterations"] = max(i["iterations"] for i in infos)
+        if info is not None:  # device tensors: nothing is read on the host
+            info["sequence_iterations"] = torch.cat(
+                [i["sequence_iterations"].to(devices[0]) for i in infos])
+            info["iterations"] = info["sequence_iterations"].amax()
         gather = lambda *parts: torch.cat([p.to(devices[0]) for p in parts], dim=0)
         return tree_map(gather, *(o[0] for o in outs)), gather(*(o[1] for o in outs))
 

@@ -536,7 +536,12 @@ def _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extr
     decision and `done` are per sequence; a sequence that has converged is
     frozen (its state, normal equations and lam no longer change) while the
     others iterate, as jax.vmap of the reference's while_loop leaves it.
-    Nothing is reduced across sequences but the exit test."""
+
+    The loop runs all `iters` iterations and reads nothing on the host: an
+    iteration after convergence is a no-op on the result (the masks keep
+    every bit), so the answer equals the reference's early exit, and the
+    caller's thread never waits for the device. The iterations each
+    sequence took before converging are counted on the device."""
     dtype, dev = state.P.dtype, state.P.device
     lead = state.P.shape[:-2]
 
@@ -548,10 +553,10 @@ def _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extr
 
     lam = torch.full(lead, init_lambda, dtype=dtype, device=dev)
     done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    taken = torch.zeros(lead, dtype=torch.int64, device=dev)
     ne = build(state)
-    it = 0
-    while it < iters:
-        it += 1
+    for _ in range(iters):
+        taken += ~done
         H, b, h, W, b_l, cost0 = ne
         dx, dl = step(H, b, W, h, b_l, lam)
         trial = retract_state(state, dx, dl, dims)
@@ -564,10 +569,9 @@ def _lm(state, imu, proj, priors, G, pixel_sqrt_info, dims, iters, estimate_extr
         lam = torch.where(done, lam, torch.where(ok, torch.clamp(lam * 0.4, min=1e-9),
                                                  torch.clamp(lam * 8.0, max=1e6)))
         done = done | (take & (cost0 - cost1 < 1e-6 * torch.clamp(cost0, min=1e-30)))
-        if bool(done.all()):  # the one host sync per iteration
-            break
     if info is not None:
-        info["iterations"] = it
+        info["iterations"] = taken.amax()
+        info["sequence_iterations"] = taken
     return state, ne[-1]
 
 
@@ -577,14 +581,15 @@ def solve_window(state: WindowState, imu: ImuFactors, proj: ProjFactors,
                  init_lambda: float = 1e-4, info: dict | None = None):
     """Levenberg–Marquardt with landmark Schur elimination; branchless
     accept/reject (a non-finite trial cost is rejected), the reference's
-    lambda schedule and its convergence early exit. Returns (state, cost).
+    lambda schedule and its convergence test. Returns (state, cost).
 
     One factor evaluation per iteration: the normal equations at the
     accepted state are carried, a trial's evaluation becomes the next
-    linearization when accepted. The loop reads ONE device scalar per
-    iteration on the host (the early-exit flag); lambda and the accept
-    decision stay on the device. `info`, when given, receives the number of
-    LM iterations run."""
+    linearization when accepted. All `iters` iterations run (those after
+    convergence leave the result as it is) and nothing is read on the host:
+    lambda, the accept decision and the convergence flag stay on the
+    device. `info`, when given, receives `iterations`, the LM iterations
+    taken before convergence (at most `iters`), as a 0-d device tensor."""
     if state.P.dim() != 2:
         raise ValueError("solve_window takes one problem; see solve_window_batched")
     n_pose, D = 6 * dims.B, dims.D
@@ -604,12 +609,14 @@ def solve_window_batched(state: WindowState, imu: ImuFactors, proj: ProjFactors,
     a leading sequence axis; G is (3,) or (NB,3), pixel_sqrt_info () or
     (NB,). Returns (state, cost (NB,)). What jax.vmap(solve_window) is in
     the reference: per-sequence lambda, accept test and convergence, a
-    converged sequence frozen while the others iterate, the loop over when
-    all are done or at `iters`. Per iteration the NB sequences share ONE
+    converged sequence frozen while the others iterate; the loop always
+    runs `iters` iterations. Per iteration the NB sequences share ONE
     launch each of K1 and K2 (flattened rows) and ONE of K5 (a thread block
-    per sequence); K3 and K4 are not on this path. Still one host read per
-    iteration. A sequence whose system is not SPD or whose cost is NaN only
-    has its own steps rejected."""
+    per sequence); K3 and K4 are not on this path. No host read. `info`
+    receives `iterations` (the most any sequence took, 0-d) and
+    `sequence_iterations` ((NB,), each sequence's), device tensors. A
+    sequence whose system is not SPD or whose cost is NaN only has its own
+    steps rejected."""
     if state.P.dim() != 3:
         raise ValueError("solve_window_batched takes a leading sequence axis on every leaf")
     NB = state.P.shape[0]

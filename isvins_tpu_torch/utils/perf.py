@@ -28,6 +28,10 @@ def enable(on: bool = True):
     _ENABLED = on
 
 
+def enabled() -> bool:
+    return _ENABLED
+
+
 def reset():
     with _LOCK:
         _SAMPLES.clear()

@@ -481,3 +481,36 @@ def make_retrieval_db(K: int, R: int = 64, seed: int = 0):
     dbv = np.ones((K, R), bool)
     dbv[9] = False
     return qd, qv, dbd, dbv
+
+
+def make_retrieval_cases(K: int, R: int = 64, seed: int = 0):
+    """Edge cases of kernel K6 at any K >= 1, as (name, (qd, qv, dbd, dbv),
+    thresh), host numpy in make_retrieval_db's types. The database rows are
+    the query's rows with 0..63 bits flipped (keyframe k flips k + j mod 64
+    bits of row j), so that distances fall on both sides of every
+    threshold; a tenth of the database rows, the whole of keyframe 1 and the
+    last five query rows are invalid. Cases: `near` at thresh 40 (the pose
+    graph's) and at 33 (a distance of the planted rows), thresh 0 (no hit)
+    and 257 (every valid row hits), 600 (above the 512 of an invalid row:
+    every query row hits), `random` descriptors at thresh 109 (about the median
+    least distance of a query row to 64 random rows), and every query row invalid (the
+    denominator is 1, every score 0)."""
+    rng = np.random.default_rng(seed + 7919 * K)
+    qd = rng.integers(0, 2**32, size=(R, 8), dtype=np.uint32)
+    bits = np.unpackbits(qd.view(np.uint8), axis=1)  # (R, 256)
+    dbd = np.empty((K, R, 8), np.uint32)
+    for k in range(K):
+        b = bits.copy()
+        for j in range(R):
+            b[j, rng.choice(256, size=(k + j) % 64, replace=False)] ^= 1
+        dbd[k] = np.packbits(b, axis=1).view(np.uint32)
+    qv = np.ones(R, bool)
+    qv[-5:] = False
+    dbv = rng.random((K, R)) >= 0.1
+    if K > 1:
+        dbv[1] = False
+    rand = rng.integers(0, 2**32, size=(K, R, 8), dtype=np.uint32)
+    near = (qd, qv, dbd, dbv)
+    return [("near", near, 40), ("near", near, 33), ("near", near, 0), ("near", near, 257),
+            ("near", near, 600), ("random", (qd, qv, rand, dbv), 109),
+            ("query invalid", (qd, np.zeros(R, bool), dbd, dbv), 40)]

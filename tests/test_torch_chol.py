@@ -105,22 +105,35 @@ def test_chol_plan_fits_every_configured_window(D):
 
 
 def test_chol_plan_at_the_product_window_and_the_limit():
-    """D = 276 takes 18 x 18 tiles of 16 in 177,664 B; the largest D the
-    layout takes is 320, and one more raises, naming it."""
-    assert chol_plan(276) == (16, 288, 171, 177664)
+    """D = 276 takes 18 x 18 tiles of 16 in 177,664 B of shared memory, and
+    320 is the largest D whose tiles fit there (the shared route). From 321
+    on the tiles live in a device-memory scratch of tiles x 256 floats per
+    problem and shared memory holds the two vectors and 64 floats alone
+    (the global route): 321, 366 and 486 are all_size 21, 24 and 32. The route raises only where even its vectors would not
+    fit shared memory, naming the sizes."""
+    assert chol_plan(276) == (16, 288, 171, 177664, 0) and chol_plan(276).route == "shared"
+    assert chol_plan(320) == (16, 320, 210, 217856, 0) and chol_plan(320).route == "shared"
     assert chol_batched.chol_max_dim() == 320
-    assert chol_plan(320).smem_bytes <= SMEM_LIMIT < chol_plan(321).smem_bytes
-    with pytest.raises(ValueError, match="D <= 320"):
-        chol_batched.checked_plan(321, "chol_solve_batched")
+    for D in (321, 366, 486):
+        plan = chol_plan(D)
+        nt = plan.Dp // plan.nb
+        assert plan.route == "global" and plan.tiles == nt * (nt + 1) // 2
+        assert plan.scratch_floats == plan.tiles * plan.nb ** 2
+        assert plan.smem_bytes == (2 * plan.Dp + 64) * 4 <= SMEM_LIMIT
+        assert chol_batched.checked_plan(D, "chol_solve_batched") == plan
+    assert chol_plan(486).scratch_floats * 4 == 507904  # 0.5 MB a problem, L2-resident
+    with pytest.raises(ValueError, match="shared memory for its vectors"):
+        chol_batched.checked_plan(29025, "chol_solve_batched")
 
 
-@pytest.mark.parametrize("D", [16, 17, 66, 141, 276, 320])
+@pytest.mark.parametrize("D", [16, 17, 66, 141, 276, 320, 321, 366])
 def test_blocked_emulation_vs_plain_and_pallas(D):
     """The emulation of the blocked routine against K5's plain version and
     chol_solve_batched_pallas (interpret): 2e-3 of the largest entry, rtol
     2e-3; it visits exactly the plan's tiles. D: one tile, one row more, the
-    windows of B = 4, 9 (not a multiple of 16) and 18, and the largest D
-    the layout takes."""
+    windows of B = 4, 9 (not a multiple of 16) and 18, the largest D of the
+    shared route, and all_size 21 and 24 on the global route (the same
+    routine, its tiles in device memory)."""
     H, b = _spd(D)
     plan = chol_plan(D)
     ref = ops.chol_solve_batched_ref(T(H), T(b)).numpy()

@@ -163,9 +163,11 @@ def test_linstep_step_on_card(B, F):
 @pytest.mark.gpu
 def test_solve_window_on_card_runs_through_kernels():
     """An f32 window solve on the card launches K1/K2 once per evaluation
-    and K3/K4 once per LM iteration, and reaches the cost of the plain
-    solve on the CPU within 1e-3 relative (different summation orders in
-    an f32 LM that is not converged after 10 iterations)."""
+    and K3/K4 once per LM iteration, all 10 of them (those after
+    convergence too: the loop reads nothing on the host), and reaches the
+    cost of the plain solve on the CPU within 1e-3 relative (different
+    summation orders in an f32 LM that is not converged after 10
+    iterations)."""
     dev = _card()
     from isvins_tpu_torch.parallel.sharded import make_batch_problem
     from isvins_tpu_torch.solver import WindowDims, solve_window
@@ -182,7 +184,8 @@ def test_solve_window_on_card_runs_through_kernels():
     info = {}
     st, cost = solve_window(*args(dev), dims, iters=10, info=info)
     torch.cuda.synchronize()
-    it = info["iterations"]
+    it = 10
+    assert 0 < int(info["iterations"]) <= it and info["iterations"].device == dev
     assert ops.launch_counts() == {"proj_rows": it + 1, "imu_rows": it + 1,
                                    "schur_corr": it, "linstep": it, "chol_solve_batched": 0,
                                    "retrieval_scores": 0, "schur_reduce": 0}
@@ -192,13 +195,18 @@ def test_solve_window_on_card_runs_through_kernels():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 23, 256, 4096])
+@pytest.mark.parametrize("K", [1, 2, 23, 64, 129, 256, 4096])
 def test_retrieval_scores_exact_on_card(K):
     """K6 at R = 64, thresh = 40, at the pose-graph path's first and largest
-    database (K = 1, 23), the slice's capacity and the default one: one
-    launch, counted once, exactly equal to its plain version (integer work
-    up to one IEEE division)."""
+    database (K = 1, 23), two keyframes, 64 and 129, the slice's capacity
+    and the default one: one launch, counted once, exactly equal to its
+    plain version (integer work on the int8 tensor cores up to one IEEE
+    division); and exact on every case of make_retrieval_cases (thresholds
+    0, 33, 40, 109, 257 and 600, invalid database rows and keyframes, every
+    query row invalid)."""
     dev = _card()
+    from isvins_tpu_torch.utils.synthetic import make_retrieval_cases
+
     args = _k6_inputs(dev, K)
     before = ops.retrieval_scores.launches
     out = ops.retrieval_scores(*args)
@@ -209,6 +217,10 @@ def test_retrieval_scores_exact_on_card(K):
     assert torch.equal(out, ref)
     if K >= 18:
         assert float(ref[3]) > 0.9 and float(ref[9]) == 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    for name, (qd, qv, dbd, dbv), thresh in make_retrieval_cases(K):
+        a = (t(qd.view(np.int32)), t(qv), t(dbd.view(np.int32)), t(dbv), thresh)
+        assert torch.equal(ops.retrieval_scores(*a), ops.retrieval_scores_ref(*a)), (name, thresh)
 
 
 @pytest.mark.gpu
@@ -284,15 +296,19 @@ def test_chol_solve_batched_small_windows_on_card(D):
 @pytest.mark.gpu
 def test_chol_plan_matches_the_kernels_geometry():
     """ops.chol_plan and the C++ chol_plan of csrc/chol.cuh give the same
-    (nb, Dp, tiles, smem_bytes) for the widths the repo runs and the limit."""
+    (nb, Dp, tiles, smem_bytes, scratch_floats) for the widths the repo
+    runs, the last of the shared route (320) and the global route's
+    all_size 21, 24 and 32 (321, 366, 486)."""
     dev = _card()
     from isvins_tpu_torch.ops import _lib
     from isvins_tpu_torch.ops.chol_batched import chol_max_dim, chol_plan
 
-    for D in (1, 66, 141, 276, chol_max_dim(), chol_max_dim() + 1):
-        out = torch.zeros(4, dtype=torch.int32)
+    for D in (1, 66, 141, 276, 320, chol_max_dim() + 1, 321, 366, 486):
+        out = torch.zeros(5, dtype=torch.int32)
         _lib.launch("isv_chol_plan", D, out, device=dev)
         assert tuple(out.tolist()) == tuple(chol_plan(D)), D
+    routes = [chol_plan(D).route for D in (276, 320, 321, 366, 486)]
+    assert routes == ["shared"] * 2 + ["global"] * 3
 
 
 @pytest.mark.gpu
@@ -314,10 +330,10 @@ def test_chol_and_schur_reduce_raise_on_bad_cuda_input():
         ops.chol_solve_batched(H, b[:, :-1].contiguous())
     with pytest.raises(ValueError):  # b on another device
         ops.chol_solve_batched(H, b.cpu())
-    for n in (321, 400):  # the tiles would not fit shared memory (D <= 320)
-        with pytest.raises(ValueError, match="D <= 320"):
-            ops.chol_solve_batched(torch.eye(n, device=dev)[None].contiguous(),
-                                   torch.ones((1, n), device=dev))
+    # past the global route too: the vectors would not fit shared memory
+    with pytest.raises(ValueError, match="shared memory for its vectors"):
+        ops.chol_solve_batched(torch.empty((1, 29025, 29025), device=dev),
+                               torch.ones((1, 29025), device=dev))
     Hr, br, W, h, bl = chip_smoke.kernel_inputs(dev)["schur_reduce"]
     with pytest.raises(TypeError):
         ops.schur_reduce(Hr.double(), br, W, h, bl)
@@ -333,8 +349,8 @@ def test_chol_and_schur_reduce_raise_on_bad_cuda_input():
 @pytest.mark.gpu
 def test_solve_window_batched_on_card_runs_through_kernels():
     """An f32 batched solve on the card launches K1 and K2 once per
-    evaluation and K5 once per LM iteration, never K3 or K4, and in f64 its
-    rows are the single solves (cost 1e-9 relative)."""
+    evaluation and K5 once per LM iteration, all 10 of them, never K3 or K4,
+    and in f64 its rows are the single solves (cost 1e-9 relative)."""
     dev = _card()
     from isvins_tpu_torch.parallel import make_batch_problem
     from isvins_tpu_torch.solver import WindowDims, solve_window, solve_window_batched
@@ -346,7 +362,8 @@ def test_solve_window_batched_on_card_runs_through_kernels():
     info = {}
     st, cost = solve_window_batched(*prob, dims, iters=10, info=info)
     torch.cuda.synchronize()
-    it = info["iterations"]
+    it = 10  # every iteration runs
+    assert info["sequence_iterations"].shape == (3,)
     assert ops.launch_counts() == {"proj_rows": it + 1, "imu_rows": it + 1, "schur_corr": 0,
                                    "linstep": 0, "chol_solve_batched": it,
                                    "retrieval_scores": 0, "schur_reduce": 0}
@@ -452,6 +469,131 @@ def test_segment_sum_on_card_without_host_read():
                            (np.arange(2)[:, None] * 18 + idx_j).ravel()])
     ref = torch.zeros((36, 36)).index_add_(0, torch.as_tensor(keys), torch.as_tensor(src))
     torch.testing.assert_close(card, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [21, 24, 32])
+def test_linstep_and_chol_wide_windows_on_card(B):
+    """K4 and K5 past the shared-memory route: D = 321, 366 and 486
+    (all_size 21, 24 and 32), the tiles in a device-memory scratch. Each is
+    launched once, counted once, and equal to its plain version within 2e-3
+    of the largest entry, rtol 2e-3 (tests/test_pallas_ops.py:157-162 and
+    176-184); a second run gives the same bits; a pivot that is not > 0 at
+    the last column gives a NaN row in K5 and leaves the others' bits."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.ops.chol_batched import chol_plan
+
+    D = 15 * B + 6
+    assert chol_plan(D).route == "global"
+    args = chip_smoke.small_linstep_inputs(dev, B, 1000)
+    H, b = chip_smoke.chol_inputs(dev, 4, D=D)
+    before = ops.linstep.launches, ops.chol_solve_batched.launches
+    out = ops.linstep(*args)
+    x = ops.chol_solve_batched(H, b)
+    torch.cuda.synchronize()
+    assert (ops.linstep.launches, ops.chol_solve_batched.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    for o, r in zip(out, ops.linstep_ref(*args, D)):
+        torch.testing.assert_close(o, r, rtol=2e-3, atol=2e-3 * float(r.abs().max()))
+    ref = ops.chol_solve_batched_ref(H, b)
+    torch.testing.assert_close(x, ref, rtol=2e-3, atol=2e-3 * float(ref.abs().max()))
+    assert all(torch.equal(o, o2) for o, o2 in zip(out, ops.linstep(*args)))
+    assert torch.equal(ops.chol_solve_batched(H, b), x)
+    Hb = H.clone()
+    Hb[3, D - 1, D - 1] = -1.0
+    bad = ops.chol_solve_batched(Hb, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(bad[3]).all()) and torch.equal(bad[:3], x[:3])
+
+
+@pytest.mark.gpu
+def test_dispatch_steady_reads_nothing_on_the_host():
+    """An estimator on the card (the window of test_torch_parallel's
+    pipelined drive) driven to its steady state; then dispatch_steady of its
+    window under torch.cuda.set_sync_debug_mode("error"), where any host
+    read of the device raises (chip_smoke._dispatch_without_host_reads).
+    The collected solve took between 1 and the iterations it ran."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.config import WindowConfig, euroc_config
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.solver import WindowDims
+    from isvins_tpu_torch.utils.synthetic import make_world, project
+
+    R_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    cfg = euroc_config().replace(
+        window=WindowConfig(vo_size=4, all_size=10, max_features=256, max_imu_per_frame=64),
+        tic=(0.02, -0.01, 0.01), ric=tuple(map(tuple, R_bc)))
+    world = make_world(n_frames=14, n_landmarks=240, seed=0)
+    tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(R_bc)
+    est = Estimator(cfg, WindowDims(B=10, Vo=4, F=256, N=2048), device=dev)
+
+    def gt_init(e):
+        e.set_ground_truth_init(world.P, world.Q, world.V)
+        e.f_manager.depth[:] = -1.0
+
+    est._gt_init = gt_init
+    try:
+        for k in range(14):
+            if k > 0:
+                for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                    est.process_imu(world.imu_dts[k - 1][s], world.imu_accs[k - 1][s],
+                                    world.imu_gyrs[k - 1][s])
+            pts, _, vis = project(world, k, tic, qic)
+            est.process_image(np.where(vis)[0], pts[vis], world.frame_times[k])
+        assert est.solver_flag == NON_LINEAR and est.steady_solves > 0
+        rec = chip_smoke._dispatch_without_host_reads(est, dev)
+    finally:
+        est.close()
+    assert 0 < rec["dispatch_iterations"] <= cfg.solver.max_iterations
+    assert rec["solve_stream_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_converged_f32_solve_keeps_its_bits_on_card():
+    """C8 on the card: an f32 solve runs all `iters` LM iterations, and those
+    after convergence keep every bit. Of make_batch_problem's windows (B 6,
+    F 32, N 64, seeds 0-3), every one whose single solve (K1-K4) converges
+    inside 60 iterations gives the same state and cost for iters = 60 as
+    for iters = n, the n it took (info["iterations"] in both); the same for
+    the batched solve (K1, K2, K5) of each seed's windows that converge
+    there, with sequence_iterations. At least one window of each kind
+    converges."""
+    dev = _card()
+    from isvins_tpu_torch.parallel import make_batch_problem
+    from isvins_tpu_torch.solver import WindowDims, solve_window, solve_window_batched
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    dims, iters = WindowDims(B=6, Vo=3, F=32, N=64), 60
+    same = lambda x, y: all(torch.equal(a, b) for a, b in zip((*x[0], x[1]), (*y[0], y[1])))
+    sub = lambda prob, ks: [tree_map(lambda a: a[ks].contiguous(), t) for t in prob[:4]]
+    single = batched = 0
+    for seed in range(4):
+        prob = make_batch_problem(4, dims, torch.float32, seed=seed, device=dev)
+        for k in range(4):
+            args = [tree_map(lambda a: a[k].contiguous(), t) for t in prob[:4]] + list(prob[4:])
+            info, info_n = {}, {}
+            out = solve_window(*args, dims, iters=iters, info=info)
+            n = int(info["iterations"])
+            if n < iters:
+                single += 1
+                assert same(out, solve_window(*args, dims, iters=n, info=info_n)), (seed, k)
+                assert int(info_n["iterations"]) == n
+        info = {}
+        solve_window_batched(*prob, dims, iters=iters, info=info)
+        ks = [k for k, n in enumerate(info["sequence_iterations"].tolist()) if n < iters]
+        if ks:
+            batched += len(ks)
+            info, info_n = {}, {}
+            out = solve_window_batched(*sub(prob, ks), *prob[4:], dims, iters=iters, info=info)
+            n = int(info["iterations"])
+            assert n < iters
+            out_n = solve_window_batched(*sub(prob, ks), *prob[4:], dims, iters=n, info=info_n)
+            assert same(out, out_n), (seed, ks)
+            assert torch.equal(info_n["sequence_iterations"], info["sequence_iterations"])
+    assert single > 0 and batched > 0, (single, batched)
 
 
 def test_resolve_device_without_a_card_raises():

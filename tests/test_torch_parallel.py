@@ -199,11 +199,12 @@ def test_batched_freezes_converged_sequences():
     for k in range(3):
         info = {}
         alone.append(_solo(prob, k, DIMS, iters=32, info=info))
-        its.append(info["iterations"])
+        its.append(int(info["iterations"]))
     assert len(set(its)) >= 2, its  # they do stop at different iterations
     info = {}
     st, cost = ts.solve_window_batched(*prob, DIMS, iters=32, info=info)
-    assert info["iterations"] == max(its)
+    assert int(info["iterations"]) == max(its)
+    assert info["sequence_iterations"].tolist() == its
     for k, (st_k, c_k) in enumerate(alone):
         np.testing.assert_allclose(float(cost[k]), float(c_k), rtol=1e-9)
         for a, b in zip(st, st_k):
@@ -411,7 +412,8 @@ def test_solve_async_equivalent_to_sync():
     to 18 frames: init at frame 9, then 8 steady frames) with solve_async=True, collect_solve() before each frame's IMU
     feed, against the synchronous drive: the same poses (1e-9, the bound of
     tests/test_pipeline_mode.py:73-97; the same code on the same inputs),
-    each delivered one frame later."""
+    each delivered one frame later, and the same counts of solves and of
+    the LM iterations they took."""
     from isvins_tpu_torch.config import WindowConfig, euroc_config
     from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
     from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
@@ -448,10 +450,13 @@ def test_solve_async_equivalent_to_sync():
         est.collect_solve()
         est.close()
         assert est.failure_count == 0
-        return est.ready_poses, delivered
+        return est.ready_poses, delivered, (est.steady_solves, est.lm_iterations_taken)
 
-    sync, n_sync = drive(False)
-    pipe, n_pipe = drive(True)
+    sync, n_sync, it_sync = drive(False)
+    pipe, n_pipe, it_pipe = drive(True)
+    # the LM iterations each solve took travel with the dispatched solve
+    assert it_sync == it_pipe and it_sync[0] >= 9
+    assert it_sync[0] <= it_sync[1] <= it_sync[0] * cfg.solver.max_iterations
     assert len(sync) == len(pipe) >= 8
     for (ta, Pa, Qa), (tb, Pb, Qb) in zip(sync, pipe):
         assert ta == tb

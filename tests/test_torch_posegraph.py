@@ -380,3 +380,32 @@ def test_keyframe_db_grow_and_query_mirror(tmp_path):
     np.testing.assert_array_equal(loaded.ret_desc_dev[:11].numpy().view(np.uint32),
                                   jdb.ret_desc[:11])
     assert loaded.query(10, skip_recent=2) == db.query(10, skip_recent=2)
+
+
+@pytest.mark.parametrize("K", [1, 2, 129])
+def test_retrieval_scores_edge_cases_vs_reference(K):
+    """K6's plain version on utils.synthetic.make_retrieval_cases (near
+    duplicates at thresholds 40 and 33, thresh 0, 257 and 600, random rows
+    at 109, invalid database rows and a whole invalid keyframe, every query
+    row invalid: the denominator is 1) against the JAX retrieval_scores_ref,
+    retrieval_scores_pallas in interpret mode and the JAX CPU path
+    (keyframe_db._retrieval_scores), exactly. K: one keyframe (one block of
+    the kernel), two, and 129 (past a power of two)."""
+    from isvins_tpu.ops.hamming_pallas import retrieval_scores_pallas, retrieval_scores_ref
+    from isvins_tpu.posegraph.keyframe_db import _retrieval_scores
+
+    from isvins_tpu_torch.utils.synthetic import make_retrieval_cases
+
+    seen = set()
+    for name, (qd, qv, dbd, dbv), thresh in make_retrieval_cases(K):
+        out = ops.retrieval_scores_ref(I32(qd), T(qv), I32(dbd), T(dbv), thresh).numpy()
+        j = [jnp.asarray(a) for a in (qd, qv, dbd, dbv)]
+        for ref in (retrieval_scores_ref(*j, thresh), retrieval_scores_pallas(*j, thresh)):
+            np.testing.assert_array_equal(out, np.asarray(ref), err_msg=f"{name} {thresh}")
+        np.testing.assert_array_equal(out, np.asarray(_retrieval_scores(*j, thresh), np.float32))
+        if thresh == 0 or name == "query invalid":
+            assert not out.any()
+        if thresh == 600:  # above an invalid row's 512: every valid query row hits
+            np.testing.assert_array_equal(out, np.ones(K, np.float32))
+        seen.add((name, thresh))
+    assert len(seen) == 7

@@ -160,3 +160,72 @@ def test_relpose_slot0_is_inert():
     B = dims.B
     assert float(J[0, :, 6 * (B - 1): 6 * B].abs().max()) == 0.0
     assert float(J[0, :, 0:6].abs().max()) > 0.0  # its j side (frame 0) is there
+
+
+def _row(prob, k):
+    """Sequence k of a port batch problem, as solve_window's arguments."""
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    return [tree_map(lambda a: a[k].contiguous(), t) for t in prob[:4]] + list(prob[4:])
+
+
+# (dtype, seed, sequence) of make_batch_problem at B 6, F 32, N 64 whose
+# solve converges well inside 60 LM iterations (f64: 24; f32: 37, the one
+# f32 sequence of seeds 0-3 that does)
+CONVERGING = [(torch.float64, 4, 1), (torch.float32, 0, 3)]
+
+
+@pytest.mark.parametrize("dt, seed, k", CONVERGING)
+def test_iterations_after_convergence_keep_every_bit(dt, seed, k):
+    """The LM loop runs all `iters` iterations with no host read (the
+    reference exits its while_loop early): a converged solve is frozen by
+    its masks, so solve_window(iters=60) gives the same bits as
+    solve_window(iters=n), n the iterations it took, and info["iterations"]
+    is n, a 0-d tensor on the solve's device, in both."""
+    dims = ts.WindowDims(B=6, Vo=3, F=32, N=64)
+    args = _row(make_batch_problem(4, dims, dt, seed=seed, device="cpu"), k)
+    info = {}
+    st, cost = ts.solve_window(*args, dims, iters=60, info=info)
+    n = info["iterations"]
+    assert isinstance(n, torch.Tensor) and n.dim() == 0 and n.device.type == "cpu"
+    assert 0 < int(n) < 60
+    info_n = {}
+    st_n, cost_n = ts.solve_window(*args, dims, iters=int(n), info=info_n)
+    assert int(info_n["iterations"]) == int(n)
+    for name, a, b in zip(st._fields + ("cost",), (*st, cost), (*st_n, cost_n)):
+        assert torch.equal(a, b), name
+
+
+def test_batched_iterations_after_convergence_keep_every_bit():
+    """Two sequences that converge at different iterations (24 and 35 of
+    60, f64): the batched solve run for 60 iterations gives the same bits
+    as run for the most either took; sequence_iterations holds each one's
+    count, the same as its single solve's, and iterations their maximum."""
+    dims = ts.WindowDims(B=6, Vo=3, F=32, N=64)
+    prob = make_batch_problem(2, dims, torch.float64, seed=4, device="cpu")
+    info = {}
+    st, cost = ts.solve_window_batched(*prob, dims, iters=60, info=info)
+    its = info["sequence_iterations"].tolist()
+    assert len(set(its)) == 2 and max(its) < 60, its
+    assert int(info["iterations"]) == max(its)
+    for k in range(2):
+        solo = {}
+        ts.solve_window(*_row(prob, k), dims, iters=60, info=solo)
+        assert int(solo["iterations"]) == its[k]
+    st_n, cost_n = ts.solve_window_batched(*prob, dims, iters=max(its))
+    for name, a, b in zip(st._fields + ("cost",), (*st, cost), (*st_n, cost_n)):
+        assert torch.equal(a, b), name
+
+
+def test_solve_window_wide_window_matches_reference():
+    """all_size 21 (D = 321, past the shared-memory route of the card's
+    Cholesky, ROADMAP C12) through the port's plain solve against the JAX
+    package's, f64 at a narrow F: the same iterates to 1e-9, as at B = 10."""
+    dims, iters = ts.WindowDims(B=21, Vo=8, F=32, N=128), 6
+    j_args, t_args = _batch_args(dims, np.float64)
+    st_j, c_j = js.solve_window(*j_args, js.WindowDims(*dims), iters=iters)
+    st_t, c_t = ts.solve_window(*t_args, dims, iters=iters)
+    assert dims.D == 321
+    np.testing.assert_allclose(float(c_t), float(c_j), rtol=1e-9)
+    for a, b in zip(st_t, st_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-9)
