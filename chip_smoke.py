@@ -74,13 +74,25 @@ Each path's launch counts are set to 0 just before it and read just after.
                JAX package has none for its TPU kernel): one LM linear step
                of a product window taken unfused in the full layout, K7
                then K5 at NB = 1, against the fused K4 step
-  9. profiler — torch.profiler's device time of each kernel's own launches
-               (`profiler_ms`), the cross-check of the graph-replay times
+  9. pixels  — the pixels-to-poses path at EuRoC's 752x480
+               (realism_bench.py's configuration, 60 rendered frames): the
+               port's FeatureTracker on the card (every steady dispatch
+               under set_sync_debug_mode("error")), its packets aligned with
+               the IMU as the JAX package's System aligns them
+               (PacketFeeder), an Estimator with no ground-truth hook that
+               self-initializes and then solves through K1-K4; held to the
+               JAX package's run of the same drive (pixels_reference.py:
+               init frame within 2, ATE within 1.5x + 2 cm) and the first
+               10 frames tracked again on the CPU against the card
+ 10. profiler — torch.profiler's device time of each kernel's own launches
+               (`profiler_ms`), the cross-check of the graph-replay times;
+               then the kernels of one steady tracker step, counted by the
+               profiler, and the card's busy time in it
 An earlier line: {"launch_floor_ms": {"graph": t, "eager": t}}.
 Second-to-last line: one JSON object with the per-kernel records of all
 seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
-multiseq path, K7 from the reduce path); last line:
-{"ok": true, "device": {...}}.
+multiseq path, K7 from the reduce path; launches_pixels from the pixels
+path); last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1938,6 +1950,323 @@ def phase_multiseq_estimators(dev, n_frames=40, n_landmarks=1800, seeds=MULTISEQ
                     "multiseq_solo_frame_median_ms": float(np.median(secs_a)) * 1e3}
 
 
+# The JAX package's run of the pixels drive on the CPU (pixels_reference.py,
+# 60 frames; PERF.md section 4): the frame at which it self-initialized, the
+# ATE of its solved poses, their count. The pixels phase is held to it.
+PIXELS_REFERENCE = {"pix_init_frame": 19, "pix_ate_vio_m": 0.12962937335972388,
+                    "solved_poses": 41}
+PIXELS_FRAMES = 60
+PIXELS_CARD_CPU_FRAMES = 10
+
+
+def pixels_config(fused_ransac=None):
+    """realism_bench.py:47-74, the reference's full-resolution
+    configuration: EuRoC cam0 at 752x480 with radtan distortion, max_cnt
+    150, min_dist 25, 4 LK levels of 21x21, CLAHE; window 18/8/1000, N =
+    3072; its noise and excitation threshold; no ground-truth hook,
+    estimate_extrinsic 0; the pose graph off (System is not ported)."""
+    from isvins_tpu_torch.config import (CameraConfig, NoiseConfig, PoseGraphConfig,
+                                         TrackerConfig, WindowConfig, euroc_config)
+    from isvins_tpu_torch.solver import WindowDims
+
+    R_bc = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+    cfg = euroc_config().replace(
+        camera=CameraConfig(),
+        tracker=TrackerConfig(max_cnt=150, min_dist=25, freq=100, lk_levels=4, lk_win=21,
+                              equalize=True, border=4, fused_ransac=fused_ransac),
+        window=WindowConfig(vo_size=8, all_size=18, max_features=1000, max_imu_per_frame=64),
+        noise=NoiseConfig(acc_n=0.02, gyr_n=0.002, acc_w=1e-4, gyr_w=1e-5, pixel_sqrt_info=460.0),
+        solver=euroc_config().solver.__class__(excitation_threshold=0.08),
+        posegraph=PoseGraphConfig(enabled=False), tic=(0.0, 0.0, 0.0), ric=R_bc,
+        estimate_extrinsic=0)
+    return cfg, WindowDims(B=18, Vo=8, F=1000, N=3072)
+
+
+def pixels_world(cfg, n_frames=PIXELS_FRAMES):
+    """realism_bench.py's world and RoomRenderer (seed 7 world, seed 11
+    textures at tex_res 512, the camera's radtan model), frames rendered
+    before the drive."""
+    import numpy as np
+
+    from isvins_tpu_torch.frontend import make_camera
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world
+
+    world = make_world(n_frames=n_frames, frame_hz=20.0, imu_hz=200.0, n_landmarks=10, seed=7,
+                       traj_r=3.0, traj_w=0.9, noise_acc=0.02, noise_gyr=0.002,
+                       ba=(0.02, -0.015, 0.01), bg=(0.002, -0.003, 0.004))
+    renderer = RoomRenderer(world, cfg.camera, np.zeros(3), mat_to_quat_np(np.asarray(cfg.ric_np)),
+                            seed=11, camera_model=make_camera(cfg.camera), tex_res=512)
+    return world, [renderer.render(k)[0] for k in range(n_frames)]
+
+
+class PacketFeeder:
+    """The measurement alignment of the JAX package's System
+    (isvins_tpu/system.py:181-198, 266-318), without System: the first
+    tracker packet is skipped (no velocities), a packet keeps the rows with
+    track_cnt > 1 and is processed once an IMU sample later than its time
+    (+ td) has arrived, after the IMU up to its time was fed with the
+    boundary sample interpolated; solved poses are drained into
+    `trajectory`. (With freq 100 over 20 Hz frames System's frequency
+    control publishes every frame.)"""
+
+    def __init__(self, est):
+        from collections import deque
+
+        self.est, self.td = est, est.cfg.solver.td
+        self.imu_buf, self.feature_buf = deque(), deque()
+        self.current_time, self.init_feature, self._last_imu = -1.0, True, None
+        self.trajectory, self.published = [], []
+
+    def pub_imu(self, t, acc, gyr):
+        self.imu_buf.append((t, acc, gyr))
+        self._process()
+
+    def pub_packet(self, t, out):
+        if self.init_feature:
+            self.init_feature = False
+            return
+        sel = out["track_cnt"] > 1
+        self.published.append(int(sel.sum()))
+        if sel.sum() > 0:
+            self.feature_buf.append((t, out["ids"][sel], out["pts_norm"][sel], out["vel"][sel]))
+        self._process()
+
+    def _process(self):
+        est = self.est
+        while (self.feature_buf and self.imu_buf
+               and self.imu_buf[-1][0] > self.feature_buf[0][0] + self.td):
+            t, ids, pts, vel = self.feature_buf.popleft()
+            t_img = t + self.td
+            if self.current_time < 0:
+                self.current_time = t_img
+            while self.imu_buf and self.imu_buf[0][0] < t_img:
+                ti, acc, gyr = self.imu_buf.popleft()
+                if ti - self.current_time > 0:
+                    est.process_imu(ti - self.current_time, acc, gyr)
+                self.current_time, self._last_imu = ti, (acc, gyr)
+            if self.imu_buf and self._last_imu is not None:
+                t2, acc2, gyr2 = self.imu_buf[0]
+                dt1, dt2 = t_img - self.current_time, t2 - t_img
+                if dt1 > 0 and dt2 >= 0:
+                    w1, w2 = dt2 / max(dt1 + dt2, 1e-9), dt1 / max(dt1 + dt2, 1e-9)
+                    acc1, gyr1 = self._last_imu
+                    est.process_imu(dt1, w1 * acc1 + w2 * acc2, w1 * gyr1 + w2 * gyr2)
+                    self.current_time = t_img
+            est.process_image(ids, pts, t, vels=vel)
+            self.trajectory.extend(est.ready_poses)
+            est.ready_poses.clear()
+
+
+def _timed_method(obj, name, log, sync):
+    """Wrap obj.<name> to append (args, result, wall ms) to log, the card
+    synchronized at both ends."""
+    orig = getattr(obj, name)
+
+    def timed(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        sync()
+        log.append((a, k, out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _slot_agreement(card, cpu):
+    """Per frame, the tracker packets' slots (in packet order) with equal
+    ids, and the position gaps of the ids both have."""
+    import numpy as np
+
+    equal = total = 0
+    gaps = []
+    for a, b in zip(card, cpu):
+        n = max(len(a["ids"]), len(b["ids"]))
+        m = min(len(a["ids"]), len(b["ids"]))
+        equal += int(np.sum(a["ids"][:m] == b["ids"][:m]))
+        total += n
+        common, ia, ib = np.intersect1d(a["ids"], b["ids"], return_indices=True)
+        gaps.extend(np.linalg.norm(a["pts_px"][ia] - b["pts_px"][ib], axis=1))
+    return equal / max(total, 1), float(np.median(gaps)), float(np.max(gaps))
+
+
+def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
+    """The pixels-to-poses path at EuRoC's 752x480 (pixels_config): rendered
+    frames through the port's FeatureTracker on the card (fused RANSAC),
+    its packets through PacketFeeder into an Estimator with no ground-truth
+    hook, which self-initializes (SfM, alignment) and then solves through
+    K1-K4. Every steady tracker dispatch runs under
+    torch.cuda.set_sync_debug_mode("error"). Afterwards the first frames are
+    tracked again on the CPU (the same port, device="cpu", fused RANSAC) and
+    compared with the card's packets. Held to the JAX package's run of the
+    same drive (PIXELS_REFERENCE)."""
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
+    from isvins_tpu_torch.frontend import FeatureTracker
+    from isvins_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg, dims = pixels_config()
+    t0 = time.perf_counter()
+    world, frames = pixels_world(cfg, n_frames)
+    render_s = time.perf_counter() - t0
+    tracker = FeatureTracker(cfg.camera, cfg.tracker, device=dev)
+    est = Estimator(cfg, dims, device=dev)
+    assert tracker.fused_ransac and getattr(est, "_gt_init", None) is None
+    feeder = PacketFeeder(est)
+    sync = lambda: torch.cuda.synchronize(dev)
+    inits, solves = [], []
+    _timed_method(est, "initial_structure", inits, sync)
+    _timed_method(est, "solve_odometry", solves, sync)
+    card_packets, frame_ms, disp_ms, span_ms, wait_ms = [], [], [], [], []
+    init_frame = None
+    print(f"[pixels] {n_frames} frames {cfg.camera.width}x{cfg.camera.height} rendered in "
+          f"{render_s:.1f} s; dims={tuple(dims)} max_cnt={cfg.tracker.max_cnt}")
+    ops.reset_launch_counts()  # just before the main path
+    try:
+        for k in range(n_frames):
+            sync()
+            ta = time.perf_counter()
+            if k > 0:
+                acc_t = world.frame_times[k - 1]
+                for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                    acc_t += world.imu_dts[k - 1][s]
+                    feeder.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
+            steady_trk = k >= 2
+            if steady_trk:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                t1 = time.perf_counter()
+                pending = tracker.dispatch(frames[k], world.frame_times[k])
+                t2 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            pending.wait()
+            t3 = time.perf_counter()
+            out = tracker.collect(pending)
+            feeder.pub_packet(world.frame_times[k], out)
+            sync()
+            tb = time.perf_counter()
+            if k < PIXELS_CARD_CPU_FRAMES:
+                card_packets.append(out)
+            if steady_trk:
+                disp_ms.append((t2 - t1) * 1e3)
+                wait_ms.append((t3 - t2) * 1e3)
+                span_ms.append(pending.stream_ms())
+            if init_frame is not None:
+                frame_ms.append((tb - ta) * 1e3)
+            if init_frame is None and est.solver_flag == NON_LINEAR:
+                init_frame = k
+        counts = ops.launch_counts()  # just after the main path
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        est.close()
+
+    # the first frames again on the CPU, the same route (fused RANSAC)
+    cpu_cfg, _ = pixels_config(fused_ransac=True)
+    cpu_tracker = FeatureTracker(cpu_cfg.camera, cpu_cfg.tracker, device="cpu")
+    cpu_packets = [cpu_tracker.read_image(frames[k], world.frame_times[k])
+                   for k in range(PIXELS_CARD_CPU_FRAMES)]
+    ids_equal, gap_median, gap_max = _slot_agreement(card_packets, cpu_packets)
+
+    traj = feeder.trajectory
+    t_est = np.array([t for (t, _, _) in traj])
+    p_est = np.array([P for (_, P, _) in traj])
+    ate = float(ate_rmse(t_est, p_est, world.frame_times, world.P, align="se3")) \
+        if len(traj) >= 3 else float("nan")
+    init_ok = [ms for (_, _, ok, ms) in inits if ok]
+    init_solve = [ms for (a, kw, _, ms) in solves if kw.get("first") or (a and a[0])]
+    iters = cfg.solver.max_iterations
+    n_steady = est.steady_solves
+    rec = {
+        "pix_init_frame": init_frame, "pix_steady_solves": n_steady,
+        "pix_solved_poses": len(traj), "pix_ate_vio_m": ate,
+        "pix_tracks_median": float(np.median(feeder.published)),
+        "pix_frame_median_ms": float(np.median(frame_ms)) if frame_ms else None,
+        "trk_dispatch_host_ms": float(np.median(disp_ms)),
+        "trk_stream_span_ms": float(np.median(span_ms)),
+        "trk_collect_wait_ms": float(np.median(wait_ms)),
+        "init_ms": init_ok[0] if init_ok else None,
+        "init_attempts": len(inits), "init_attempts_ms": [ms for (*_, ms) in inits],
+        "init_solve_ms": init_solve[0] if init_solve else None,
+        "trk_card_cpu": {"frames": PIXELS_CARD_CPU_FRAMES, "ids_equal_share": ids_equal,
+                         "gap_median_px": gap_median, "gap_max_px": gap_max},
+        "launches": counts, "failure_count": int(est.failure_count),
+        "render_s": render_s, "reference": PIXELS_REFERENCE,
+    }
+    print(f"[pixels] self-initialized at frame {init_frame} (JAX reference "
+          f"{PIXELS_REFERENCE['pix_init_frame']}); init {rec['init_ms']} ms over "
+          f"{len(inits)} attempts, its solve {rec['init_solve_ms']} ms; {n_steady} steady solves, "
+          f"{len(traj)} poses, pix_ate_vio_m={ate:.6f} (reference "
+          f"{PIXELS_REFERENCE['pix_ate_vio_m']:.6f}); tracks median {rec['pix_tracks_median']}")
+    print(f"[pixels] tracker step (median of {len(disp_ms)} steady frames): dispatch "
+          f"{rec['trk_dispatch_host_ms']:.2f} ms on the host under set_sync_debug_mode('error'), "
+          f"its stream spans {rec['trk_stream_span_ms']:.2f} ms between events, then "
+          f"{rec['trk_collect_wait_ms']:.2f} ms waited; frame (tracker + estimator) median "
+          f"{rec['pix_frame_median_ms']} ms; launches {counts}")
+    print(f"[pixels] card against CPU over {PIXELS_CARD_CPU_FRAMES} frames: ids equal in "
+          f"{ids_equal:.4f} of slots, position gap median {gap_median:.3g} px, max {gap_max:.3g}")
+    print(json.dumps({"pixels": rec, "card": smi}))
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=n_steady * (iters + 1), imu_rows=n_steady * (iters + 1),
+                  schur_corr=n_steady * iters, linstep=n_steady * iters)
+    if init_frame is None or abs(init_frame - PIXELS_REFERENCE["pix_init_frame"]) > 2:
+        raise AssertionError(f"self-initialized at frame {init_frame}, the reference at "
+                             f"{PIXELS_REFERENCE['pix_init_frame']} (bound: within 2)")
+    if n_steady < 30 or est.failure_count != 0:
+        raise AssertionError(f"{n_steady} steady solves, failure_count {est.failure_count}")
+    if not ate <= 1.5 * PIXELS_REFERENCE["pix_ate_vio_m"] + 0.02:
+        raise AssertionError(f"pix_ate_vio_m={ate} > 1.5 x the reference's + 0.02 m")
+    if ids_equal < 0.95 or gap_median > 0.05:
+        raise AssertionError(f"card and CPU trackers part: ids equal {ids_equal}, median gap "
+                             f"{gap_median} px")
+    if counts != expect:
+        raise AssertionError(f"pixels-path launches {counts} != {expect}")
+    return counts, rec, (tracker, frames[-1], world.frame_times[-1])
+
+
+def tracker_launches(dev, trk):
+    """The kernels one steady tracker step launches (dispatch and collect of
+    the drive's last frame once more, after a warm-up), counted by
+    torch.profiler: its device-side events (kernels and copies), beside the
+    host's launch calls, and the card's busy time in the step (the union of
+    those events' intervals) beside the span from the first to the last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tracker, img, t = trk
+    tracker.read_image(img, t + 0.05)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tracker.read_image(img, t + 0.1)
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    device = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    copies = sum(1 for e in events if e.name.startswith("cudaMemcpy"))
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the device intervals
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms, span_ms = busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+    print(f"[pixels] one steady tracker step: {device} device events (kernels and copies), "
+          f"{launches} kernel launch calls and {copies} copy calls on the host (torch.profiler); "
+          f"the card busy {busy_ms:.3f} ms of the {span_ms:.3f} ms from its first to its last")
+    top = sorted((e for e in prof.key_averages() if e.key.startswith(("aten::", "cuda"))),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    host = {e.key: [e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in top}
+    print(f"[pixels] the step's aten operators and CUDA runtime calls by host time (calls, self "
+          f"ms; under the profiler): {host}")
+    return {"trk_launches": launches, "trk_device_events": device, "trk_copy_calls": copies,
+            "trk_device_busy_ms": busy_ms, "trk_device_span_ms": span_ms,
+            "trk_host_top_ops": host}
+
+
 def main():
     import torch
 
@@ -1951,19 +2280,23 @@ def main():
                                          records["chol_solve_batched"]["ms"])
     est_counts, ms_est = phase_multiseq_estimators(dev)
     red_counts = phase_reduce(dev)
+    pix_counts, pix, trk = phase_pixels(dev, smi)
     nullspace = nullspace_cost(dev)  # its host times before phase_profiler's tracing
     phase_profiler(dev, records)
+    pix.update(tracker_launches(dev, trk))  # the profiler's count, after its phase
     # K5's launches are the multiseq path's (both halves), K7's its own
-    # path's, the others' the posegraph path's
+    # path's, the others' the posegraph path's; `launches_pixels` is the
+    # pixels path's
     counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
-                      "multiseq": {**ms, **ms_est}, "nullspace": nullspace}))
+                      "multiseq": {**ms, **ms_est}, "pixels": pix, "nullspace": nullspace}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
-         "replaces": KERNEL_META[k][1], "launches": counts[k], **records[k]}
+         "replaces": KERNEL_META[k][1], "launches": counts[k],
+         "launches_pixels": pix_counts[k], **records[k]}
         for k in KERNEL_META]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

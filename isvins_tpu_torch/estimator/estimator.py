@@ -37,6 +37,7 @@ from ..device import device_const, resolve_device
 from ..factors import ImuNoise, integrate_segment
 from ..factors.priors import relpose_update_np, rollpitch_update_np, se3_prior_update_np
 from ..geom import hostmath as hm
+from ..initial.ex_rotation import ExtrinsicRotationCalibrator
 from ..solver import (
     ImuFactors,
     PriorState,
@@ -288,13 +289,16 @@ class Estimator:
         self.G = np.asarray(cfg.gravity)
         self.min_parallax = cfg.solver.min_parallax_px / cfg.noise.pixel_sqrt_info
 
-        # online extrinsic calibration mode: 2 = hand-eye calibrator until
-        # confident, then 1 = refine in the window solver; 0 = fixed
+        # online extrinsic calibration mode (estimator.cpp:139-153): 2 = run
+        # the hand-eye calibrator until confident, then drop to 1 = refine
+        # the extrinsic block in the window solver; 0 = fixed. The runtime
+        # mode and the calibrated rotation persist across failure resets
+        # (the reference stores the promotion in the RIC global, which
+        # clearState/setParameter re-install).
         self.estimate_extrinsic = int(cfg.estimate_extrinsic)
-        if self.estimate_extrinsic == 2:
-            raise NotImplementedError(
-                "online extrinsic rotation calibration (initial/ex_rotation) is not "
-                "ported yet (ROADMAP, queue A, 'SfM initialization')")
+        self._calib_ric: Optional[np.ndarray] = None
+        self.ex_calibrator = (ExtrinsicRotationCalibrator(vo_size=self.dims.Vo)
+                              if self.estimate_extrinsic == 2 else None)
         self._marg_exec = None  # lazy ThreadPoolExecutor(1)
         self._marg_future = None
         self._marg_job_extra = None
@@ -326,7 +330,8 @@ class Estimator:
         self.Bgs = np.zeros((B, 3))
         self.Headers = np.zeros(B)
         self.tic = np.asarray(self.cfg.tic_np)
-        self.qic = hm.mat_to_quat_np(np.asarray(self.cfg.ric_np))
+        ric = self._calib_ric if self._calib_ric is not None else self.cfg.ric_np
+        self.qic = hm.mat_to_quat_np(np.asarray(ric))
 
         self.imu_dt = np.zeros((B, C))
         self.imu_acc = np.zeros((B, C, 3))
@@ -399,6 +404,22 @@ class Estimator:
         self.acc_0 = acc
         self.gyr_0 = gyr
 
+    def _segment_delta_q(self, j: int) -> np.ndarray:
+        """Gyro-only midpoint preintegrated rotation of frame segment j at
+        the current bias estimate (pre_integrations[frame_count]->delta_q),
+        host numpy: the segment is at most C samples."""
+        q = np.array([1.0, 0.0, 0.0, 0.0])
+        g_prev = self.imu_gyr0[j]
+        bg = self.Bgs[j]
+        for k in range(int(self.imu_cnt[j])):
+            dt = self.imu_dt[j, k]
+            g = self.imu_gyr[j, k]
+            dq = np.concatenate([[1.0], 0.5 * ((0.5 * (g_prev + g) - bg) * dt)])
+            q = hm.quat_mul_np(q, dq)
+            q /= np.linalg.norm(q)
+            g_prev = g
+        return q
+
     # ------------------------------------------------------------------ image
     def process_image(self, feat_ids, pts, t: float, vels=None) -> dict:
         """One frame step (estimator.cpp:126–211). Returns diagnostics."""
@@ -407,11 +428,28 @@ class Estimator:
         self.Headers[self.frame_count] = t
         info = {"keyframe": keyframe, "solved": False}
 
+        # online extrinsic rotation calibration (estimator.cpp:139-153): feed
+        # consecutive-frame correspondences + the gyro-preintegrated rotation
+        # to the hand-eye calibrator; on confidence, install ric and drop to
+        # refinement mode (the solver's extrinsic block takes over)
+        if self.estimate_extrinsic == 2 and self.frame_count != 0:
+            ci, cj = self.f_manager.get_corresponding(self.frame_count - 1, self.frame_count)
+            if len(ci) >= 9:
+                ric = self.ex_calibrator.push(ci[:, :2], cj[:, :2],
+                                              self._segment_delta_q(self.frame_count))
+                if ric is not None:
+                    self._calib_ric = ric
+                    self.qic = hm.mat_to_quat_np(np.asarray(ric))
+                    self.estimate_extrinsic = 1
+                    info["extrinsic_calibrated"] = True
+
         B = self.dims.B
         if self.solver_flag == INITIAL:
             if self.frame_count == B - 1:
+                # init only once the extrinsic is at least coarsely known, with
+                # a 0.1 s retry throttle (estimator.cpp:160-165)
                 ok = False
-                if (t - self.initial_timestamp) > 0.1:
+                if self.estimate_extrinsic != 2 and (t - self.initial_timestamp) > 0.1:
                     ok = self.initial_structure()
                     self.initial_timestamp = t
                 info["init"] = ok

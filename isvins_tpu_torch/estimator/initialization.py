@@ -1,24 +1,25 @@
-"""Visual-inertial initialization entry (port of
-isvins_tpu/estimator/initialization.py).
+"""Visual-inertial initialization entry (torch port of
+isvins_tpu/estimator/initialization.py; reference src/initial/*,
+estimator.cpp:239-429): IMU-excitation check, relative pose, global SfM,
+PnP chaining, gyro-bias estimation, linear velocity/gravity/scale alignment
+and gravity refinement (estimator/vi_init.py).
 
-`initial_structure(est)` is called by the Estimator when the window first
-fills. In this port only the `_gt_init` hook is available: a test or a
-calling script installs `est._gt_init` (a callable taking the estimator)
-that sets the window states. The SfM chain (five-point, global SfM, PnP,
-the rest of vi_init, ex_rotation) is item 3, "SfM initialization", of the
-ROADMAP's port queue; until it is ported, an estimator without the hook
-stops here loudly.
+`initial_structure(est)` is the entry called by the Estimator when the
+window first fills. Tests and benches may install `est._gt_init` (a
+callable taking the estimator) to set the window states instead.
 """
 
 from __future__ import annotations
 
 
 def initial_structure(est) -> bool:
-    """Returns True when the window states are initialized."""
+    """estimator.cpp:239-355. Returns True when the window states (Ps, Qs,
+    Vs, Bgs, scaled landmarks, gravity-aligned frame) are initialized."""
     hook = getattr(est, "_gt_init", None)
-    if hook is None:
-        raise NotImplementedError(
-            "isvins_tpu_torch has no SfM initialization yet (ROADMAP, queue A, "
-            "'SfM initialization'); install est._gt_init to initialize the window")
-    hook(est)
-    return True
+    if hook is not None:
+        hook(est)
+        return True
+
+    from .vi_init import run_visual_inertial_init
+
+    return run_visual_inertial_init(est)

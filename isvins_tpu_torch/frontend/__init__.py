@@ -1,7 +1,7 @@
 """Frontend (torch port of isvins_tpu/frontend): the batched camodocal
-camera-model family (pinhole+radtan, Mei, Kannala-Brandt, Scaramuzza) and
-the image kernels the pose graph's keyframe step needs. The tracker
-(FeatureTracker, LK, the rest of image_ops) is not ported yet."""
+camera-model family (pinhole+radtan, Mei, Kannala-Brandt, Scaramuzza),
+image kernels (blur/pyramid/CLAHE/Shi-Tomasi), pyramidal Lucas-Kanade
+tracking, and the feature tracker orchestration."""
 
 from .camera import (  # noqa: F401
     EquidistantCamera,
@@ -10,3 +10,4 @@ from .camera import (  # noqa: F401
     PinholeRadtan,
     make_camera,
 )
+from .tracker import FeatureTracker  # noqa: F401

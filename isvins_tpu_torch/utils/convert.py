@@ -72,3 +72,19 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tracker_state(tracker) -> dict:
+    """A feature tracker's host state as numpy (the keys of
+    frontend.tracker.STATE_KEYS and `prev_img`), read from either package's
+    FeatureTracker by attribute: what FeatureTracker.load_state installs."""
+    from ..frontend.tracker import STATE_KEYS
+
+    state = {k: getattr(tracker, k) for k in STATE_KEYS}
+    for k in ("pts", "ids", "track_cnt", "valid", "prev_un"):
+        state[k] = np.array(state[k])
+    img = tracker.prev_img
+    if isinstance(img, torch.Tensor):
+        img = img.cpu().numpy()
+    state["prev_img"] = None if img is None else np.array(img, dtype=np.float32)
+    return state

@@ -1,8 +1,8 @@
 """Synthetic visual-inertial world generator (numpy, host-side); a copy of
-the world generator, `RoomRenderer` and `project` of
-isvins_tpu/utils/synthetic.py (the other image renderers come with the
-tracker port). RoomRenderer's optional camera model is the port's
-(frontend.camera), called on f64 CPU tensors.
+the world generator, the image renderers (`StampRenderer`, `PatchRenderer`,
+`RoomRenderer`) and `project` of isvins_tpu/utils/synthetic.py.
+RoomRenderer's optional camera model is the port's (frontend.camera),
+called on f64 CPU tensors.
 
 Provides ground-truth trajectories with analytically consistent IMU
 measurements and landmark observations — the test bed for the window solver,
@@ -181,6 +181,266 @@ def make_world(
         imu_dts=imu_dts, imu_accs=imu_accs, imu_gyrs=imu_gyrs,
         imu_acc0=imu_acc0, imu_gyr0=imu_gyr0, gravity=G, ba=ba, bg=bg,
     )
+
+
+class StampRenderer:
+    """Renders frames of a SynthWorld as images: each landmark gets a
+    distinctive seeded random stamp (so binary descriptors can identify it),
+    over a faint static background texture. Used by the full-pipeline tests
+    and image benches."""
+
+    def __init__(self, world: SynthWorld, cam_cfg, tic, qic, stamp: int = 25,
+                 seed: int = 99):
+        self.world = world
+        self.cam = cam_cfg
+        self.tic = np.asarray(tic)
+        self.qic = np.asarray(qic)
+        self.K = np.array(
+            [[cam_cfg.fx, 0, cam_cfg.cx], [0, cam_cfg.fy, cam_cfg.cy], [0, 0, 1]]
+        )
+        H, W = cam_cfg.height, cam_cfg.width
+        # flat background: a static image-space texture would violate the
+        # epipolar geometry the tracker's RANSAC enforces (it does not move
+        # with the camera); per-frame sensor noise is added in render()
+        self.base = np.full((H, W), 100.0)
+        self.noise_sigma = 1.5
+        from scipy.ndimage import gaussian_filter
+
+        self.half = stamp // 2
+        self.stamps = []
+        for m in range(len(world.landmarks)):
+            s_rng = np.random.default_rng(7000 + m)
+            # multi-scale structure: LK's convergence basin equals the feature
+            # correlation length, so the stamp needs content at blob scale
+            # (sigma ~ stamp/3, survives two pyramid levels), mid scale, and
+            # fine detail (for BRIEF identity)
+            yy, xx = np.mgrid[0:stamp, 0:stamp].astype(np.float64)
+            c = (stamp - 1) / 2.0
+            blob = np.exp(-((xx - c) ** 2 + (yy - c) ** 2) / (2 * (stamp / 3.5) ** 2))
+            mid = gaussian_filter(s_rng.uniform(0, 1, size=(stamp, stamp)), 3.0)
+            fine = gaussian_filter(s_rng.uniform(0, 1, size=(stamp, stamp)), 0.8)
+            s = (
+                6.0 * s_rng.choice([-1.0, 1.0]) * blob
+                + 3.0 * (mid - mid.mean())
+                + 1.0 * (fine - fine.mean())
+            )
+            self.stamps.append(s / np.abs(s).max() * 120.0)
+
+    def render(self, frame: int):
+        H, W = self.cam.height, self.cam.width
+        pts, depth, vis = project(self.world, frame, self.tic, self.qic)
+        px = (self.K @ pts.T).T[:, :2]
+        h = self.half + 2
+        inb = (
+            vis
+            & (px[:, 0] > h)
+            & (px[:, 0] < W - h)
+            & (px[:, 1] > h)
+            & (px[:, 1] < H - h)
+        )
+        img = self.base.copy()
+        rng = np.random.default_rng(123456 + frame)
+        img += rng.normal(scale=self.noise_sigma, size=img.shape)
+        hh = self.half
+        for m in np.where(inb)[0]:
+            cx, cy = int(round(px[m, 0])), int(round(px[m, 1]))
+            img[cy - hh : cy + hh + 1, cx - hh : cx + hh + 1] += self.stamps[m]
+        return np.clip(img, 0, 255), px, inb
+
+
+class PatchRenderer:
+    """Perspective-correct renderer: each landmark is a textured planar patch
+    in 3D, rendered by inverse homography warping, composited far-to-near
+    (painter's algorithm), over a direction-sampled background at infinity.
+
+    Unlike StampRenderer (flat stamps pasted at integer pixel positions, ~1 px
+    tracking bias), every image gradient here moves exactly with the camera:
+    patch appearance is the true perspective projection of a world plane and
+    the background has zero parallax, so LK tracking and BRIEF matching see
+    the geometry the estimator assumes. Same render() API as StampRenderer."""
+
+    def __init__(self, world: SynthWorld, cam_cfg, tic, qic, seed: int = 99,
+                 px_half: float = 13.0, noise_sigma: float = 1.5,
+                 tex_res: int = 56):
+        self.world = world
+        self.cam = cam_cfg
+        self.tic = np.asarray(tic)
+        self.qic = np.asarray(qic)
+        self.K = np.array(
+            [[cam_cfg.fx, 0, cam_cfg.cx], [0, cam_cfg.fy, cam_cfg.cy], [0, 0, 1]]
+        )
+        self.Kinv = np.linalg.inv(self.K)
+        self.noise_sigma = noise_sigma
+        self.tex_res = tex_res
+        from scipy.ndimage import gaussian_filter
+
+        lms = world.landmarks
+        M = len(lms)
+        rng = np.random.default_rng(seed)
+
+        # plane frames: normal points from the landmark toward the world
+        # origin (the trajectory circles the origin, so patches face the
+        # camera), with a small random tilt
+        n = -lms / np.linalg.norm(lms, axis=1, keepdims=True)
+        n = n + rng.normal(scale=0.12, size=(M, 3))
+        n = n / np.linalg.norm(n, axis=1, keepdims=True)
+        up = np.tile(np.array([0.0, 0.0, 1.0]), (M, 1))
+        u = np.cross(up, n)
+        u = u / np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-9)
+        v = np.cross(n, u)
+        self.normal, self.u, self.v = n, u, v
+
+        # physical half-size: projects to ~px_half pixels at each landmark's
+        # typical viewing distance from the trajectory ring
+        ring_r = np.linalg.norm(world.P[:, :2], axis=1).mean()
+        d_typ = np.maximum(np.linalg.norm(lms[:, :2], axis=1) - ring_r, 0.8)
+        self.half_m = px_half * d_typ / cam_cfg.fx
+
+        # textures: multi-scale (blob for the LK pyramid's coarse levels,
+        # mid structure, fine detail for BRIEF identity), zero at the rim
+        # via a cosine window so the composite edge is smooth
+        T = tex_res
+        yy, xx = np.mgrid[0:T, 0:T].astype(np.float64)
+        c = (T - 1) / 2.0
+        r_n = np.sqrt((xx - c) ** 2 + (yy - c) ** 2) / c
+        window = 0.5 * (1 + np.cos(np.pi * np.clip(r_n, 0, 1)))
+        self.textures = np.zeros((M, T, T))
+        self.alphas = np.zeros((M, T, T))
+        for m in range(M):
+            s_rng = np.random.default_rng(7000 + m)
+            blob = np.exp(-((xx - c) ** 2 + (yy - c) ** 2) / (2 * (T / 3.5) ** 2))
+            mid = gaussian_filter(s_rng.uniform(0, 1, size=(T, T)), T / 9.0)
+            fine = gaussian_filter(s_rng.uniform(0, 1, size=(T, T)), 2.0)
+            s = (
+                6.0 * s_rng.choice([-1.0, 1.0]) * blob
+                + 4.0 * (mid - mid.mean())
+                + 1.2 * (fine - fine.mean())
+            )
+            self.textures[m] = s / np.abs(s).max() * 120.0 * window
+            self.alphas[m] = window
+
+        # background-at-infinity: smooth random function of view direction
+        bg_rng = np.random.default_rng(seed + 1)
+        self._bg_freq = bg_rng.normal(scale=2.0, size=(12, 3))
+        self._bg_phase = bg_rng.uniform(0, 2 * np.pi, 12)
+        self._bg_amp = bg_rng.uniform(0.5, 1.0, 12) * (4.0 / 12)
+
+    def _background(self, R_wc):
+        """Sample the infinite-distance background along each pixel ray."""
+        H, W = self.cam.height, self.cam.width
+        xs, ys = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+        rays = np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ self.Kinv.T
+        rays = rays / np.linalg.norm(rays, axis=-1, keepdims=True)
+        d_w = rays @ R_wc.T  # (H,W,3) world directions
+        val = np.full((H, W), 100.0)
+        for f, ph, a in zip(self._bg_freq, self._bg_phase, self._bg_amp):
+            val += a * np.sin(d_w @ f + ph)
+        return val
+
+    def render(self, frame: int):
+        """Returns (img (H,W) float, px (M,2) GT pixel centers, inb (M,))."""
+        H, W = self.cam.height, self.cam.width
+        world = self.world
+        Pb, Qb = world.P[frame], world.Q[frame]
+        R_wb = _q_to_mat(Qb)
+        R_bc = _q_to_mat(self.qic)
+        R_wc = R_wb @ R_bc                       # cam -> world
+        C_w = Pb + R_wb @ self.tic               # camera center in world
+        R_cw = R_wc.T
+        t_cw = -R_cw @ C_w
+
+        lms = world.landmarks
+        p_c = (R_cw @ lms.T).T + t_cw
+        depth = p_c[:, 2]
+        vis = depth > 0.5
+        d_safe = np.where(np.abs(depth) > 1e-6, depth, 1.0)
+        uv = p_c[:, :2] / d_safe[:, None]
+        px = uv @ self.K[:2, :2].T + self.K[:2, 2]
+        vis &= (np.abs(uv[:, 0]) < 0.9) & (np.abs(uv[:, 1]) < 0.65)
+        # only front-facing patches render coherent texture
+        view = lms - C_w
+        cosang = -np.einsum("md,md->m", view, self.normal) / np.maximum(
+            np.linalg.norm(view, axis=1), 1e-9
+        )
+        vis &= cosang > 0.25
+
+        img = self._background(R_wc)
+        rng = np.random.default_rng(123456 + frame)
+        T = self.tex_res
+
+        order = np.argsort(-depth[np.where(vis)[0]])
+        vis_rows = np.where(vis)[0][order]  # far to near
+        inb = np.zeros(len(lms), bool)
+        for m in vis_rows:
+            s = self.half_m[m]
+            # homography patch(a,b,1) -> image, columns [R u, R v, R X + t]
+            Hm = self.K @ np.column_stack(
+                [R_cw @ self.u[m] * s, R_cw @ self.v[m] * s,
+                 R_cw @ lms[m] + t_cw]
+            )
+            # bbox from the projected patch corners
+            corners = np.array(
+                [[-1, -1, 1], [1, -1, 1], [-1, 1, 1], [1, 1, 1]], float
+            ) @ Hm.T
+            if np.any(corners[:, 2] < 0.1):
+                continue
+            cpx = corners[:, :2] / corners[:, 2:3]
+            x0 = max(int(np.floor(cpx[:, 0].min())), 0)
+            x1 = min(int(np.ceil(cpx[:, 0].max())) + 1, W)
+            y0 = max(int(np.floor(cpx[:, 1].min())), 0)
+            y1 = min(int(np.ceil(cpx[:, 1].max())) + 1, H)
+            if x1 - x0 <= 1 or y1 - y0 <= 1 or (x1 - x0) * (y1 - y0) > 120 * 120:
+                continue
+            Hinv = np.linalg.inv(Hm)
+            # 2x2 supersampling: anti-aliases the minified texture so patch
+            # appearance is stable to sub-pixel camera motion
+            sub_off = np.array([[-0.25, -0.25], [0.25, -0.25],
+                                [-0.25, 0.25], [0.25, 0.25]])
+            xs, ys = np.meshgrid(
+                np.arange(x0, x1) + 0.5, np.arange(y0, y1) + 0.5
+            )
+            tex = self.textures[m]
+            alp = self.alphas[m]
+            tval = np.zeros_like(xs)
+            aval = np.zeros_like(xs)
+            any_inside = False
+            for ox, oy in sub_off:
+                q = np.stack(
+                    [xs + ox, ys + oy, np.ones_like(xs)], axis=-1
+                ) @ Hinv.T
+                a = q[..., 0] / q[..., 2]
+                b = q[..., 1] / q[..., 2]
+                inside = (np.abs(a) < 1.0) & (np.abs(b) < 1.0) & (q[..., 2] > 0)
+                any_inside |= bool(inside.any())
+                fx = np.clip((a + 1) * 0.5 * (T - 1), 0, T - 1 - 1e-6)
+                fy = np.clip((b + 1) * 0.5 * (T - 1), 0, T - 1 - 1e-6)
+                ix = fx.astype(np.int64)
+                iy = fy.astype(np.int64)
+                wx = fx - ix
+                wy = fy - iy
+
+                def samp(arr):
+                    return (
+                        arr[iy, ix] * (1 - wx) * (1 - wy)
+                        + arr[iy, ix + 1] * wx * (1 - wy)
+                        + arr[iy + 1, ix] * (1 - wx) * wy
+                        + arr[iy + 1, ix + 1] * wx * wy
+                    )
+
+                tval += samp(tex) * inside
+                aval += samp(alp) * inside
+            if not any_inside:
+                continue
+            tval *= 0.25
+            aval *= 0.25
+            sub = img[y0:y1, x0:x1]
+            img[y0:y1, x0:x1] = sub * (1 - aval) + (100.0 + tval) * aval
+            inb[m] = True
+
+        img += rng.normal(scale=self.noise_sigma, size=img.shape)
+        h = 8
+        inb &= (px[:, 0] > h) & (px[:, 0] < W - h) & (px[:, 1] > h) & (px[:, 1] < H - h)
+        return np.clip(img, 0, 255), px, inb
 
 
 class RoomRenderer:

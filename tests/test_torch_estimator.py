@@ -250,8 +250,8 @@ def test_triangulate_matches_reference(jax_run):
 
 
 def test_port_imports_no_jax():
-    """Every isvins_tpu_torch module (the pose graph's and the multi-sequence
-    path's among them), imported
+    """Every isvins_tpu_torch module (the pose graph's, the multi-sequence
+    path's, the tracker's and the SfM initialization's among them), imported
     in a fresh interpreter, leaves jax (and the JAX package) out of
     sys.modules."""
     root = Path(__file__).resolve().parents[1]
@@ -266,8 +266,10 @@ def test_port_imports_no_jax():
         "       'isvins_tpu_torch.ops.hamming', 'isvins_tpu_torch.initial.pnp',\n"
         "       'isvins_tpu_torch.frontend.camera', 'isvins_tpu_torch.frontend.image_ops',\n"
         "       'isvins_tpu_torch.ops.chol_batched', 'isvins_tpu_torch.ops.schur',\n"
-        "       'isvins_tpu_torch.parallel.multi_seq', 'isvins_tpu_torch.parallel.sharded'}\n"
-        "assert len(mods) >= 47 and new <= set(mods), mods\n"
+        "       'isvins_tpu_torch.parallel.multi_seq', 'isvins_tpu_torch.parallel.sharded',\n"
+        "       'isvins_tpu_torch.frontend.lk', 'isvins_tpu_torch.frontend.tracker',\n"
+        "       'isvins_tpu_torch.initial.five_point', 'isvins_tpu_torch.initial.ex_rotation'}\n"
+        "assert len(mods) >= 51 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

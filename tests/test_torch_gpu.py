@@ -596,6 +596,149 @@ def test_converged_f32_solve_keeps_its_bits_on_card():
     assert single > 0 and batched > 0, (single, batched)
 
 
+@pytest.mark.gpu
+def test_shi_tomasi_reads_nothing_on_the_host():
+    """shi_tomasi_response (its Sobel taps made with device_const) on a
+    CUDA image under torch.cuda.set_sync_debug_mode("error") raises nothing,
+    and equals the CPU's response within 1e-4 of its largest entry."""
+    dev = _card()
+    from isvins_tpu_torch.frontend.image_ops import shi_tomasi_response
+
+    img = torch.as_tensor(np.random.default_rng(0).uniform(0, 255, (480, 752)).astype(np.float32))
+    ref = shi_tomasi_response(img)
+    img_d = img.to(dev)
+    shi_tomasi_response(img_d)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = shi_tomasi_response(img_d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def _room_frames(n, W=320, H=240):
+    """n frames of the port's RoomRenderer on a 320x240 f = 200 camera (the
+    nuisance-free room of tests/test_adversarial.py's world), uint8."""
+    from isvins_tpu_torch.config import CameraConfig
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world
+
+    cam = CameraConfig(width=W, height=H, fx=200.0, fy=200.0, cx=W / 2, cy=H / 2,
+                       k1=0.0, k2=0.0, p1=0.0, p2=0.0)
+    world = make_world(n_frames=n, frame_hz=10.0, imu_hz=200.0, n_landmarks=10, seed=3)
+    R_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    r = RoomRenderer(world, cam, np.zeros(3), mat_to_quat_np(R_bc))
+    return cam, world, [np.clip(r.render(k)[0], 0, 255).astype(np.uint8) for k in range(n)]
+
+
+def _tracker_cfg(fused_ransac=True):
+    from isvins_tpu_torch.config import TrackerConfig
+
+    return TrackerConfig(max_cnt=70, min_dist=16, freq=100, lk_levels=4, lk_win=21,
+                         equalize=True, border=4, fused_ransac=fused_ransac)
+
+
+@pytest.mark.gpu
+def test_tracker_dispatch_reads_nothing_on_the_host():
+    """FeatureTracker.dispatch of a steady frame, with the fused epipolar
+    RANSAC on, under torch.cuda.set_sync_debug_mode("error"): the upload,
+    the whole device step and the start of the download are enqueued
+    without a host read; collect then returns the packet. Two steady
+    frames: the second reuses the first's pinned staging buffers."""
+    dev = _card()
+    from isvins_tpu_torch.frontend import FeatureTracker
+
+    cam, world, frames = _room_frames(5)
+    tr = FeatureTracker(cam, _tracker_cfg(None), device=dev)
+    assert tr.fused_ransac
+    for k in range(3):
+        tr.read_image(frames[k], world.frame_times[k])
+    assert int(tr.valid.sum()) >= 15
+    staged = {k: b.data_ptr() for k, b in tr._staging.items()}
+    assert sorted(staged) == ["img", "packed", "samples", "slots"]
+    for k in (3, 4):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = tr.dispatch(frames[k], world.frame_times[k])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out = tr.collect(pending)
+        assert pending.stream_ms() > 0 and (out["track_cnt"] > 1).sum() >= 15
+    assert {k: b.data_ptr() for k, b in tr._staging.items()} == staged
+
+
+@pytest.mark.gpu
+def test_card_tracker_matches_cpu_tracker():
+    """The tracker on the card against the same port on the CPU (both with
+    the fused RANSAC) over 6 rendered 320x240 frames: ids equal in at least
+    95 % of the packets' slots and a median position gap of matched ids of
+    at most 0.05 px (chip_smoke.py's bounds for the pixels phase)."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.frontend import FeatureTracker
+
+    cam, world, frames = _room_frames(6)
+    card = FeatureTracker(cam, _tracker_cfg(), device=dev)
+    cpu = FeatureTracker(cam, _tracker_cfg(), device="cpu")
+    a = [card.read_image(f, t) for f, t in zip(frames, world.frame_times)]
+    b = [cpu.read_image(f, t) for f, t in zip(frames, world.frame_times)]
+    equal, gap_median, _ = chip_smoke._slot_agreement(a, b)
+    assert equal >= 0.95 and gap_median <= 0.05, (equal, gap_median)
+    assert sum(len(p["ids"]) for p in a) > 150
+
+
+@pytest.mark.gpu
+def test_self_init_on_card():
+    """tests/test_estimator_e2e.py::test_e2e_self_init's drive on the card
+    (26 frames, 700 landmarks, 0.3/460 pixel noise; B = 10, F = 256, N =
+    2048), with no ground-truth hook: the estimator self-initializes and
+    meets the reference test's bound, >= 8 poses, a yaw-aligned largest
+    error < 0.25 m and no failure."""
+    dev = _card()
+    from isvins_tpu_torch.config import WindowConfig, euroc_config
+    from isvins_tpu_torch.estimator.estimator import Estimator
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.solver import WindowDims
+    from isvins_tpu_torch.utils.synthetic import make_world, project
+
+    R_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    cfg = euroc_config().replace(
+        window=WindowConfig(vo_size=4, all_size=10, max_features=256, max_imu_per_frame=64),
+        tic=(0.02, -0.01, 0.01), ric=tuple(map(tuple, R_bc)))
+    world = make_world(n_frames=26, n_landmarks=700, seed=0)
+    est = Estimator(cfg, WindowDims(B=10, Vo=4, F=256, N=2048), device=dev)
+    rng = np.random.default_rng(100)
+    tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(R_bc)
+    X, Y = [], []
+    try:
+        for k in range(26):
+            if k > 0:
+                for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                    est.process_imu(world.imu_dts[k - 1][s], world.imu_accs[k - 1][s],
+                                    world.imu_gyrs[k - 1][s])
+            pts, _, vis = project(world, k, tic, qic, px_noise=0.3 / 460.0, rng=rng)
+            est.process_image(np.where(vis)[0], pts[vis], world.frame_times[k])
+            if est.solver_flag == 2:
+                X.append(est.latest_pose()[1].copy())
+                Y.append(world.P[k])
+    finally:
+        est.close()
+    assert len(X) >= 8, "self-initialization failed"
+    # test_estimator_e2e.ate(align=True): yaw + translation least squares
+    X, Y = np.array(X), np.array(Y)
+    Xc, Yc = X - X.mean(0), Y - Y.mean(0)
+    th = np.arctan2(np.sum(Xc[:, 0] * Yc[:, 1] - Xc[:, 1] * Yc[:, 0]),
+                    np.sum(Xc[:, 0] * Yc[:, 0] + Xc[:, 1] * Yc[:, 1]))
+    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    emax = np.linalg.norm((R @ Xc.T).T + Y.mean(0) - Y, axis=1).max()
+    assert emax < 0.25, emax
+    assert est.failure_count == 0
+
+
 def test_resolve_device_without_a_card_raises():
     """`None` means the card: without one it raises, and so does every entry
     point that resolves its device from None; the CPU is used only when the
@@ -631,7 +774,10 @@ def test_entry_points_default_to_the_card_and_take_cpu(tmp_path):
     from isvins_tpu_torch.posegraph.keyframe_db import KeyframeDB
     from isvins_tpu_torch.utils.checkpoint import load_pose_graph
 
-    for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__):
+    from isvins_tpu_torch.frontend import FeatureTracker
+
+    for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__,
+               FeatureTracker.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert inspect.signature(MultiSequenceSolver.__init__).parameters["devices"].default is None
     for cls in (FeatureManager, KeyframeDB):
