@@ -75,24 +75,39 @@ Each path's launch counts are set to 0 just before it and read just after.
                of a product window taken unfused in the full layout, K7
                then K5 at NB = 1, against the fused K4 step
   9. pixels  — the pixels-to-poses path at EuRoC's 752x480
-               (realism_bench.py's configuration, 60 rendered frames): the
-               port's FeatureTracker on the card (every steady dispatch
-               under set_sync_debug_mode("error")), its packets aligned with
-               the IMU as the JAX package's System aligns them
-               (PacketFeeder), an Estimator with no ground-truth hook that
-               self-initializes and then solves through K1-K4; held to the
-               JAX package's run of the same drive (pixels_reference.py:
-               init frame within 2, ATE within 1.5x + 2 cm) and the first
-               10 frames tracked again on the CPU against the card
+               (realism_bench.py's configuration, the first 60 of the
+               system phase's rendered frames): the port's
+               System(enable_loop=False, pipeline=True) on the card, its
+               FeatureTracker (every steady dispatch under
+               set_sync_debug_mode("error")), its measurement alignment and
+               an Estimator with no ground-truth hook that self-initializes
+               and then solves through K1-K4; held to the JAX package's
+               System run of the same drive (pixels_reference.py: init
+               frame within 2, ATE within 1.5x + 2 cm) and the first 10
+               frames tracked again on the CPU against the card
  10. profiler — torch.profiler's device time of each kernel's own launches
                (`profiler_ms`), the cross-check of the graph-replay times;
                then the kernels of one steady tracker step, counted by the
                profiler, and the card's busy time in it
+ 11. system  — the whole pipeline with loops on at 752x480 (realism_bench.py's
+               configuration and 200-frame world, 1.4 laps): the frames
+               written as a EuRoC tree (utils.euroc_fixture) and replayed by
+               isvins_tpu_torch.run_euroc.main on the card (native CSV
+               parser, PNG decode, System(pipeline=True, pg_thread=True),
+               TUM and covariance writers, ATE); frame times, the tracker's
+               share, the worker's keyframes, peak memory, and the card's
+               busy share over the last 10 frames from one torch.profiler
+               trace; held to the JAX package's run_euroc.main on the same
+               drive (system_reference.py: init frame within 2, keyframes
+               within 10 %, loops >= 1 at a precision no lower, loop ATE
+               within 1.5x + 5 cm and under half the keyframe VIO ATE, no
+               stalling frame); the first PnP of a fresh process with and
+               without the builder's prewarm
 An earlier line: {"launch_floor_ms": {"graph": t, "eager": t}}.
 Second-to-last line: one JSON object with the per-kernel records of all
 seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
-multiseq path, K7 from the reduce path; launches_pixels from the pixels
-path); last line: {"ok": true, "device": {...}}.
+multiseq path, K7 from the reduce path; launches_pixels and launches_system
+from the pixels and system paths); last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -255,27 +270,39 @@ PROFILER_NAMES = {
 }
 
 
+PROFILER_SESSIONS = 3  # sessions profiler_ms may take to see every kernel of a wrapper
+
+
 def profiler_ms(name, fn, reps=20):
     """torch.profiler's device time of the wrapper's own kernels per call:
-    the cross-check of graph_ms (it leaves out the gaps between launches)."""
+    the cross-check of graph_ms (it leaves out the gaps between launches).
+    On the H100 a session has recorded no launch of a ctypes kernel that
+    ran (each kernel's launches are counted by its wrapper): in 2 of 4 runs
+    of the whole script one wrapper's session came back without its
+    kernel, a different wrapper each time. So a wrapper gets up to
+    PROFILER_SESSIONS sessions, each printed, and fails if none sees every
+    one of its kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
         e, "self_cuda_time_total", 0)
-    total = 0.0
-    for kernel in PROFILER_NAMES[name]:  # mean per recorded launch, summed over the kernels
-        hits = [e for e in prof.key_averages() if kernel in e.key]
-        if not hits:
-            raise AssertionError(f"{name}: torch.profiler recorded no launch of {kernel}")
-        total += sum(dev_us(e) for e in hits) / sum(e.count for e in hits)
-    return total / 1e3
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = {k: [e for e in prof.key_averages() if k in e.key] for k in PROFILER_NAMES[name]}
+        missing = [k for k, h in hits.items() if not h]
+        if not missing:
+            # mean per recorded launch, summed over the kernels
+            return sum(sum(dev_us(e) for e in h) / sum(e.count for e in h)
+                       for h in hits.values()) / 1e3
+        print(f"[profiler] {name}: session {session} recorded no launch of {missing}")
+    raise AssertionError(f"{name}: torch.profiler recorded no launch of {missing} in "
+                         f"{PROFILER_SESSIONS} sessions")
 
 
 def launch_floor(dev):
@@ -1951,9 +1978,12 @@ def phase_multiseq_estimators(dev, n_frames=40, n_landmarks=1800, seeds=MULTISEQ
 
 
 # The JAX package's run of the pixels drive on the CPU (pixels_reference.py,
-# 60 frames; PERF.md section 4): the frame at which it self-initialized, the
-# ATE of its solved poses, their count. The pixels phase is held to it.
-PIXELS_REFERENCE = {"pix_init_frame": 19, "pix_ate_vio_m": 0.12962937335972388,
+# 60 frames; PERF.md section 4): the frame whose packet it self-initialized
+# on (counted by packet, as _watch_init counts it; read after each frame's
+# pub_image, which processes the previous frame's packet, the same run says
+# 19), the ATE of its solved poses, their count. The pixels phase is held
+# to it.
+PIXELS_REFERENCE = {"pix_init_frame": 18, "pix_ate_vio_m": 0.12962937335972388,
                     "solved_poses": 41}
 PIXELS_FRAMES = 60
 PIXELS_CARD_CPU_FRAMES = 10
@@ -1964,7 +1994,7 @@ def pixels_config(fused_ransac=None):
     configuration: EuRoC cam0 at 752x480 with radtan distortion, max_cnt
     150, min_dist 25, 4 LK levels of 21x21, CLAHE; window 18/8/1000, N =
     3072; its noise and excitation threshold; no ground-truth hook,
-    estimate_extrinsic 0; the pose graph off (System is not ported)."""
+    estimate_extrinsic 0; the pose graph off."""
     from isvins_tpu_torch.config import (CameraConfig, NoiseConfig, PoseGraphConfig,
                                          TrackerConfig, WindowConfig, euroc_config)
     from isvins_tpu_torch.solver import WindowDims
@@ -1982,80 +2012,81 @@ def pixels_config(fused_ransac=None):
     return cfg, WindowDims(B=18, Vo=8, F=1000, N=3072)
 
 
-def pixels_world(cfg, n_frames=PIXELS_FRAMES):
-    """realism_bench.py's world and RoomRenderer (seed 7 world, seed 11
-    textures at tex_res 512, the camera's radtan model), frames rendered
-    before the drive."""
+ROOM_KW = dict(frame_hz=20.0, imu_hz=200.0, n_landmarks=10, seed=7, traj_r=3.0, traj_w=0.9,
+               noise_acc=0.02, noise_gyr=0.002, ba=(0.02, -0.015, 0.01), bg=(0.002, -0.003, 0.004))
+RENDER_PROCS = 4  # processes rendering the frames (the card's host has 8 cores)
+
+
+def _room(cfg, n_frames):
     import numpy as np
 
     from isvins_tpu_torch.frontend import make_camera
     from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
     from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world
 
-    world = make_world(n_frames=n_frames, frame_hz=20.0, imu_hz=200.0, n_landmarks=10, seed=7,
-                       traj_r=3.0, traj_w=0.9, noise_acc=0.02, noise_gyr=0.002,
-                       ba=(0.02, -0.015, 0.01), bg=(0.002, -0.003, 0.004))
-    renderer = RoomRenderer(world, cfg.camera, np.zeros(3), mat_to_quat_np(np.asarray(cfg.ric_np)),
-                            seed=11, camera_model=make_camera(cfg.camera), tex_res=512)
-    return world, [renderer.render(k)[0] for k in range(n_frames)]
+    world = make_world(n_frames=n_frames, **ROOM_KW)
+    return world, RoomRenderer(world, cfg.camera, np.zeros(3),
+                               mat_to_quat_np(np.asarray(cfg.ric_np)), seed=11,
+                               camera_model=make_camera(cfg.camera), tex_res=512)
 
 
-class PacketFeeder:
-    """The measurement alignment of the JAX package's System
-    (isvins_tpu/system.py:181-198, 266-318), without System: the first
-    tracker packet is skipped (no velocities), a packet keeps the rows with
-    track_cnt > 1 and is processed once an IMU sample later than its time
-    (+ td) has arrived, after the IMU up to its time was fed with the
-    boundary sample interpolated; solved poses are drained into
-    `trajectory`. (With freq 100 over 20 Hz frames System's frequency
-    control publishes every frame.)"""
+def _render(cfg, n_frames, ks):
+    """Frames ks of room_world's renderer (one process's share; each frame's
+    noise is seeded by its index, so the split does not change a pixel)."""
+    renderer = _room(cfg, n_frames)[1]
+    return [renderer.render(k)[0] for k in ks]
 
-    def __init__(self, est):
-        from collections import deque
 
-        self.est, self.td = est, est.cfg.solver.td
-        self.imu_buf, self.feature_buf = deque(), deque()
-        self.current_time, self.init_feature, self._last_imu = -1.0, True, None
-        self.trajectory, self.published = [], []
+def room_world(cfg, n_frames):
+    """realism_bench.py:67-74's world and RoomRenderer (seed 7 world, seed 11
+    textures at tex_res 512, the camera's radtan model), frames rendered
+    before the drives by RENDER_PROCS processes. make_world's first frames
+    (trajectory, IMU) do not depend on n_frames (asserted here; its
+    landmarks do, and RoomRenderer draws none), so the pixels phase takes
+    the first PIXELS_FRAMES of the system phase's SYSTEM_FRAMES."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
-    def pub_imu(self, t, acc, gyr):
-        self.imu_buf.append((t, acc, gyr))
-        self._process()
+    import numpy as np
 
-    def pub_packet(self, t, out):
-        if self.init_feature:
-            self.init_feature = False
-            return
-        sel = out["track_cnt"] > 1
-        self.published.append(int(sel.sum()))
-        if sel.sum() > 0:
-            self.feature_buf.append((t, out["ids"][sel], out["pts_norm"][sel], out["vel"][sel]))
-        self._process()
+    from isvins_tpu_torch.utils.synthetic import make_world
 
-    def _process(self):
-        est = self.est
-        while (self.feature_buf and self.imu_buf
-               and self.imu_buf[-1][0] > self.feature_buf[0][0] + self.td):
-            t, ids, pts, vel = self.feature_buf.popleft()
-            t_img = t + self.td
-            if self.current_time < 0:
-                self.current_time = t_img
-            while self.imu_buf and self.imu_buf[0][0] < t_img:
-                ti, acc, gyr = self.imu_buf.popleft()
-                if ti - self.current_time > 0:
-                    est.process_imu(ti - self.current_time, acc, gyr)
-                self.current_time, self._last_imu = ti, (acc, gyr)
-            if self.imu_buf and self._last_imu is not None:
-                t2, acc2, gyr2 = self.imu_buf[0]
-                dt1, dt2 = t_img - self.current_time, t2 - t_img
-                if dt1 > 0 and dt2 >= 0:
-                    w1, w2 = dt2 / max(dt1 + dt2, 1e-9), dt1 / max(dt1 + dt2, 1e-9)
-                    acc1, gyr1 = self._last_imu
-                    est.process_imu(dt1, w1 * acc1 + w2 * acc2, w1 * gyr1 + w2 * gyr2)
-                    self.current_time = t_img
-            est.process_image(ids, pts, t, vels=vel)
-            self.trajectory.extend(est.ready_poses)
-            est.ready_poses.clear()
+    world = _room(cfg, n_frames)[0]
+    short = make_world(n_frames=PIXELS_FRAMES, **ROOM_KW)
+    for f in ("frame_times", "P", "Q", "V", "imu_dts", "imu_accs", "imu_gyrs"):
+        a = getattr(short, f)
+        assert np.array_equal(a, getattr(world, f)[: len(a)]), f
+    shares = [range(i, n_frames, RENDER_PROCS) for i in range(RENDER_PROCS)]
+    with ProcessPoolExecutor(RENDER_PROCS, mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = list(ex.map(_render, [cfg] * RENDER_PROCS, [n_frames] * RENDER_PROCS, shares))
+    frames = [None] * n_frames
+    for ks, imgs in zip(shares, done):
+        for k, img in zip(ks, imgs):
+            frames[k] = img
+    return world, frames
+
+
+def _watch_init(est, frame_times):
+    """Wrap est.process_image: the returned list receives the index of the
+    frame whose packet was being processed when the estimator initialized
+    (solver_flag NON_LINEAR). Counted by packet, not by call, so a
+    pipelined System (which processes frame k's packet during frame k + 1)
+    and a synchronous one report the same frame."""
+    import numpy as np
+
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR
+
+    process_image, hit = est.process_image, []
+    frame_times = np.asarray(frame_times)
+
+    def watched(ids, pts, t, vels=None):
+        out = process_image(ids, pts, t, vels=vels)
+        if not hit and est.solver_flag == NON_LINEAR:
+            hit.append(int(np.argmin(np.abs(frame_times - t))))
+        return out
+
+    est.process_image = watched
+    return hit
 
 
 def _timed_method(obj, name, log, sync):
@@ -2091,79 +2122,98 @@ def _slot_agreement(card, cpu):
     return equal / max(total, 1), float(np.median(gaps)), float(np.max(gaps))
 
 
-def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
-    """The pixels-to-poses path at EuRoC's 752x480 (pixels_config): rendered
-    frames through the port's FeatureTracker on the card (fused RANSAC),
-    its packets through PacketFeeder into an Estimator with no ground-truth
-    hook, which self-initializes (SfM, alignment) and then solves through
-    K1-K4. Every steady tracker dispatch runs under
-    torch.cuda.set_sync_debug_mode("error"). Afterwards the first frames are
+def phase_pixels(dev, smi, world, frames, render_s, n_frames=PIXELS_FRAMES):
+    """The pixels-to-poses path at EuRoC's 752x480 (pixels_config): the
+    first n_frames rendered frames through the port's System(enable_loop=
+    False, pipeline=True) on the card: its FeatureTracker (fused RANSAC),
+    its measurement alignment, and an Estimator with no ground-truth hook,
+    which self-initializes (SfM, alignment) and then solves through K1-K4.
+    Every steady tracker dispatch runs under
+    torch.cuda.set_sync_debug_mode("error") (no pose-graph worker runs
+    here: the mode is process-wide). Afterwards the first frames are
     tracked again on the CPU (the same port, device="cpu", fused RANSAC) and
-    compared with the card's packets. Held to the JAX package's run of the
-    same drive (PIXELS_REFERENCE)."""
+    compared with the card's packets. Held to the JAX package's System run
+    of the same drive (PIXELS_REFERENCE)."""
     import numpy as np
     import torch
 
     from isvins_tpu_torch import ops
-    from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR
     from isvins_tpu_torch.frontend import FeatureTracker
+    from isvins_tpu_torch.system import System
     from isvins_tpu_torch.utils.evaluation import ate_rmse
 
     cfg, dims = pixels_config()
-    t0 = time.perf_counter()
-    world, frames = pixels_world(cfg, n_frames)
-    render_s = time.perf_counter() - t0
-    tracker = FeatureTracker(cfg.camera, cfg.tracker, device=dev)
-    est = Estimator(cfg, dims, device=dev)
+    sys_ = System(cfg, dims, enable_loop=False, pipeline=True, device=dev)
+    tracker, est = sys_.tracker, sys_.estimator
     assert tracker.fused_ransac and getattr(est, "_gt_init", None) is None
-    feeder = PacketFeeder(est)
     sync = lambda: torch.cuda.synchronize(dev)
     inits, solves = [], []
     _timed_method(est, "initial_structure", inits, sync)
     _timed_method(est, "solve_odometry", solves, sync)
-    card_packets, frame_ms, disp_ms, span_ms, wait_ms = [], [], [], [], []
-    init_frame = None
-    print(f"[pixels] {n_frames} frames {cfg.camera.width}x{cfg.camera.height} rendered in "
-          f"{render_s:.1f} s; dims={tuple(dims)} max_cnt={cfg.tracker.max_cnt}")
+    init_at = _watch_init(est, world.frame_times[:n_frames])
+    card_packets, published, frame_ms, disp_ms, span_ms, wait_ms = [], [], [], [], [], []
+    steady_pending, frame = set(), {"k": 0, "collected": 0}
+    dispatch, collect = tracker.dispatch, tracker.collect
+
+    def guarded_dispatch(img, t):
+        steady = frame["k"] >= 2  # every steady dispatch reads nothing on the host
+        if steady:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            pending = dispatch(img, t)
+            t2 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if steady:
+            disp_ms.append((t2 - t1) * 1e3)
+            steady_pending.add(id(pending))
+        return pending
+
+    def timed_collect(pending=None):
+        p = tracker._pending
+        t0 = time.perf_counter()
+        p.wait()
+        waited = (time.perf_counter() - t0) * 1e3
+        out = collect(pending)
+        if id(p) in steady_pending:
+            wait_ms.append(waited)
+            span_ms.append(p.stream_ms())
+        if len(card_packets) < PIXELS_CARD_CPU_FRAMES:
+            card_packets.append(out)
+        frame["collected"] += 1
+        if frame["collected"] > 1:  # System skips the first packet
+            published.append(int((out["track_cnt"] > 1).sum()))
+        return out
+
+    tracker.dispatch, tracker.collect = guarded_dispatch, timed_collect
+    print(f"[pixels] {n_frames} frames {cfg.camera.width}x{cfg.camera.height} (rendered in "
+          f"{render_s:.1f} s with the system phase's); dims={tuple(dims)} "
+          f"max_cnt={cfg.tracker.max_cnt}; System(pipeline=True)")
     ops.reset_launch_counts()  # just before the main path
     try:
         for k in range(n_frames):
             sync()
+            steady = est.solver_flag == NON_LINEAR
             ta = time.perf_counter()
             if k > 0:
                 acc_t = world.frame_times[k - 1]
                 for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
                     acc_t += world.imu_dts[k - 1][s]
-                    feeder.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
-            steady_trk = k >= 2
-            if steady_trk:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                t1 = time.perf_counter()
-                pending = tracker.dispatch(frames[k], world.frame_times[k])
-                t2 = time.perf_counter()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            pending.wait()
-            t3 = time.perf_counter()
-            out = tracker.collect(pending)
-            feeder.pub_packet(world.frame_times[k], out)
+                    sys_.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
+            frame["k"] = k
+            sys_.pub_image(world.frame_times[k], frames[k])
             sync()
-            tb = time.perf_counter()
-            if k < PIXELS_CARD_CPU_FRAMES:
-                card_packets.append(out)
-            if steady_trk:
-                disp_ms.append((t2 - t1) * 1e3)
-                wait_ms.append((t3 - t2) * 1e3)
-                span_ms.append(pending.stream_ms())
-            if init_frame is not None:
-                frame_ms.append((tb - ta) * 1e3)
-            if init_frame is None and est.solver_flag == NON_LINEAR:
-                init_frame = k
+            if steady:
+                frame_ms.append((time.perf_counter() - ta) * 1e3)
+        sys_.flush()
         counts = ops.launch_counts()  # just after the main path
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        est.close()
+        del tracker.dispatch, tracker.collect
+        sys_.close()
+    init_frame = init_at[0] if init_at else None
 
     # the first frames again on the CPU, the same route (fused RANSAC)
     cpu_cfg, _ = pixels_config(fused_ransac=True)
@@ -2172,7 +2222,7 @@ def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
                    for k in range(PIXELS_CARD_CPU_FRAMES)]
     ids_equal, gap_median, gap_max = _slot_agreement(card_packets, cpu_packets)
 
-    traj = feeder.trajectory
+    traj = sys_.vio_trajectory
     t_est = np.array([t for (t, _, _) in traj])
     p_est = np.array([P for (_, P, _) in traj])
     ate = float(ate_rmse(t_est, p_est, world.frame_times, world.P, align="se3")) \
@@ -2184,7 +2234,7 @@ def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
     rec = {
         "pix_init_frame": init_frame, "pix_steady_solves": n_steady,
         "pix_solved_poses": len(traj), "pix_ate_vio_m": ate,
-        "pix_tracks_median": float(np.median(feeder.published)),
+        "pix_tracks_median": float(np.median(published)),
         "pix_frame_median_ms": float(np.median(frame_ms)) if frame_ms else None,
         "trk_dispatch_host_ms": float(np.median(disp_ms)),
         "trk_stream_span_ms": float(np.median(span_ms)),
@@ -2197,7 +2247,7 @@ def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
         "launches": counts, "failure_count": int(est.failure_count),
         "render_s": render_s, "reference": PIXELS_REFERENCE,
     }
-    print(f"[pixels] self-initialized at frame {init_frame} (JAX reference "
+    print(f"[pixels] self-initialized on frame {init_frame}'s packet (JAX reference "
           f"{PIXELS_REFERENCE['pix_init_frame']}); init {rec['init_ms']} ms over "
           f"{len(inits)} attempts, its solve {rec['init_solve_ms']} ms; {n_steady} steady solves, "
           f"{len(traj)} poses, pix_ate_vio_m={ate:.6f} (reference "
@@ -2225,7 +2275,25 @@ def phase_pixels(dev, smi, n_frames=PIXELS_FRAMES):
                              f"{gap_median} px")
     if counts != expect:
         raise AssertionError(f"pixels-path launches {counts} != {expect}")
-    return counts, rec, (tracker, frames[-1], world.frame_times[-1])
+    return counts, rec, (tracker, frames[n_frames - 1], world.frame_times[n_frames - 1])
+
+
+def _device_busy(prof):
+    """Of a torch.profiler trace's device events (kernels and copies): the
+    union of their intervals (ms), their count, and the span from the first
+    one's start to the last one's end (ms). Read from the raw kineto events,
+    which skips building a torch FunctionEvent for each of a trace's
+    ~200,000 events."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
+    busy_ns, end = 0, float("-inf")
+    for a, b in spans:
+        busy_ns += max(0, b - max(a, end))
+        end = max(end, b)
+    return busy_ns / 1e6, len(spans), (spans[-1][1] - spans[0][0]) / 1e6 if spans else 0.0
 
 
 def tracker_launches(dev, trk):
@@ -2244,16 +2312,9 @@ def tracker_launches(dev, trk):
         tracker.read_image(img, t + 0.1)
         torch.cuda.synchronize(dev)
     events = prof.events()
-    device = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
     launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     copies = sum(1 for e in events if e.name.startswith("cudaMemcpy"))
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:  # the union of the device intervals
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy_ms, span_ms = busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+    busy_ms, device, span_ms = _device_busy(prof)
     print(f"[pixels] one steady tracker step: {device} device events (kernels and copies), "
           f"{launches} kernel launch calls and {copies} copy calls on the host (torch.profiler); "
           f"the card busy {busy_ms:.3f} ms of the {span_ms:.3f} ms from its first to its last")
@@ -2267,36 +2328,420 @@ def tracker_launches(dev, trk):
             "trk_host_top_ops": host}
 
 
+# The JAX package's run of the system drive on the CPU (system_reference.py:
+# run_euroc.main on a fixture tree of the same world and frames; 6.1 min on
+# one CPU host; PERF.md section 4). The system phase is held to it.
+SYSTEM_REFERENCE = {
+    "sys_init_frame": 18, "solved_poses": 181, "keyframes": 68, "loops_closed": 18,
+    "loop_precision_vs_gt": 0.9444444444444444, "n_async_collects": 18,
+    "ate_se3_m_vio": 1.5498294388417355, "ate_se3_m_kf_vio": 1.1790095310732611,
+    "ate_se3_m_loop_opt": 0.34506787147660267, "csv_parser": "native", "render_s": 116.5,
+    "drive_s": 234.6}
+SYSTEM_FRAMES = 200
+SYSTEM_PROFILED = 10  # the drive's last frames, traced by torch.profiler
+
+
+def system_config():
+    """realism_bench.py:47-64: pixels_config with the pose graph on
+    (keyframe_min_dist 0.3, skip_recent 25, min_loop_matches 15,
+    max_keyframes 512, max_kp_per_kf 256)."""
+    from isvins_tpu_torch.config import PoseGraphConfig
+
+    cfg, dims = pixels_config()
+    return cfg.replace(posegraph=PoseGraphConfig(
+        enabled=True, keyframe_min_dist=0.3, skip_recent=25, min_loop_matches=15,
+        max_keyframes=512, max_kp_per_kf=256)), dims
+
+
+_FIRST_PNP = r"""
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from isvins_tpu_torch.frontend import make_camera
+from isvins_tpu_torch.initial.pnp import pnp_ransac_gn
+from isvins_tpu_torch.ops import _lib
+from isvins_tpu_torch.posegraph import PoseGraphBuilder
+cfg, _ = chip_smoke.system_config()
+b = PoseGraphBuilder(cfg, camera=make_camera(cfg.camera))
+t0 = time.perf_counter()
+b.prewarm() if sys.argv[2] == "prewarm" else _lib.lib()
+prewarm_ms = (time.perf_counter() - t0) * 1e3
+X = np.random.default_rng(1).normal(size=(64, 3)) + [0.0, 0.0, 5.0]
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+ok = pnp_ransac_gn(X, X[:, :2] / X[:, 2:], [1.0, 0, 0, 0], np.zeros(3),
+                   thresh=cfg.posegraph.pnp_inlier_thresh)[0]
+print(json.dumps({"warm-up": sys.argv[2], "warm_up_ms": prewarm_ms, "ok": bool(ok),
+                  "first_pnp_ms": (time.perf_counter() - t0) * 1e3}))
+"""
+
+
+def first_pnp_ms():
+    """The first PnP of a fresh process on the card (64 points), after the
+    pose-graph builder's warm-up as it was (the kernel library alone) and
+    as it is (PoseGraphBuilder.prewarm): two processes, one after the
+    other."""
+    out = {}
+    for mode in ("library", "prewarm"):
+        r = subprocess.run([sys.executable, "-c", _FIRST_PNP, str(ROOT), mode], capture_output=True,
+                           text=True, timeout=300, check=True)
+        out[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+        assert out[mode]["ok"], out[mode]
+    return out
+
+
+
+
+def _loop_precision(db, gt):
+    """realism_bench.py:173-187: a verified loop (cur -> old) is correct when
+    its measured relative translation is within 30 cm of ground truth's."""
+    import numpy as np
+
+    from isvins_tpu_torch.geom.hostmath import quat_to_mat_np
+
+    n_loops = n_correct = 0
+    for kf in range(db.n):
+        old = int(db.loop_idx[kf])
+        if old < 0:
+            continue
+        n_loops += 1
+        gi = int(np.argmin(np.abs(gt["t"] - db.ts[kf])))
+        gj = int(np.argmin(np.abs(gt["t"] - db.ts[old])))
+        rel_t_gt = quat_to_mat_np(gt["q"][gj]).T @ (gt["p"][gi] - gt["p"][gj])
+        n_correct += float(np.linalg.norm(rel_t_gt - db.loop_dt[kf])) < 0.30
+    return n_loops, (n_correct / n_loops if n_loops else None)
+
+
+def _check_outputs(out_dir, n_keyframes):
+    """The driver's files: TUM lines of 8 fields with epoch-scale stamps, and
+    one covariance line per keyframe whose 6x6 block is symmetric (to f32
+    rounding of its largest entry) with no eigenvalue below -1e-6 of its
+    largest."""
+    import numpy as np
+
+    for name in ("pose_output.txt", "loop_pose_output.txt"):
+        with open(out_dir / name) as f:
+            rows = [line.split() for line in f.read().splitlines()]
+        assert rows and all(len(r) == 8 for r in rows), name
+        assert all(float(r[0]) > 1e9 for r in rows), name
+    with open(out_dir / "loop_cov_output.txt") as f:
+        rows = [line.split() for line in f.read().splitlines()]
+    assert len(rows) == n_keyframes and all(len(r) == 4 + 36 for r in rows)
+    worst_asym = worst_neg = 0.0
+    for r in rows:
+        C = np.array(r[4:], float).reshape(6, 6)
+        scale = np.abs(C).max()
+        worst_asym = max(worst_asym, float(np.abs(C - C.T).max() / scale))
+        w = np.linalg.eigvalsh(0.5 * (C + C.T))
+        worst_neg = max(worst_neg, float(-w.min() / w.max()))
+    assert worst_asym <= 1e-5 and worst_neg <= 1e-6, (worst_asym, worst_neg)
+    return worst_asym, worst_neg
+
+
+def phase_system(dev, smi, world, frames, render_s):
+    """The whole pipeline with loops on at 752x480 (system_config), as a
+    user runs it: the frames and the world's IMU written as a EuRoC tree
+    (utils.euroc_fixture, PNG by data/png.py) under build/, then
+    isvins_tpu_torch.run_euroc.main on the card: the loader with the native
+    CSV parser, PNG decode, System(pipeline=True, pg_thread=True) with the
+    pose graph on its worker thread, the TUM and covariance writers, ATE.
+    Timing wraps System.pub_imu and pub_image (a frame: the IMU samples
+    before the image plus the image, as realism_bench.py times it) and the
+    tracker's dispatch and collect; the last SYSTEM_PROFILED frames run
+    under torch.profiler (the card's busy share) and are left out of the
+    timed statistics. Held to the JAX package's run of the same drive
+    (SYSTEM_REFERENCE)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from isvins_tpu_torch import ops, run_euroc
+    from isvins_tpu_torch.data import EurocDataset
+    from isvins_tpu_torch.estimator.estimator import NON_LINEAR
+    from isvins_tpu_torch.frontend import FeatureTracker
+    from isvins_tpu_torch.posegraph import PoseGraphBuilder
+    from isvins_tpu_torch.posegraph import builder as builder_mod
+    from isvins_tpu_torch.system import System
+    from isvins_tpu_torch.utils import perf
+    from isvins_tpu_torch.utils.euroc_fixture import write_euroc_fixture
+    from isvins_tpu_torch.utils.evaluation import ate_rmse
+
+    ref = SYSTEM_REFERENCE
+    cfg, dims = system_config()
+    t0 = time.perf_counter()
+    pnp = first_pnp_ms()
+    pnp_s = time.perf_counter() - t0
+    print(f"[system] first PnP of a fresh process: {pnp['library']['first_pnp_ms']:.1f} ms after "
+          f"the kernel library alone, {pnp['prewarm']['first_pnp_ms']:.1f} ms after "
+          f"PoseGraphBuilder.prewarm ({pnp['prewarm']['warm_up_ms']:.1f} ms)")
+    work = ROOT / "build" / "system_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    mav0 = write_euroc_fixture(str(work), world, frames)
+    write_s = time.perf_counter() - t0
+    ds = EurocDataset(mav0)
+    gt, image_ts = ds.ground_truth, np.array([m.t for m in ds.images])
+    n = len(image_ts)
+    print(f"[system] EuRoC tree of {n} frames and {len(ds.imu)} IMU samples written in "
+          f"{write_s:.1f} s; IMU CSV parser: {ds.csv_parser}")
+
+    made, frame_log, push_log, pnp_log = [], [], [], []
+    acc = {"imu": 0.0, "trk": 0.0, "prof": None}
+    orig = {k: getattr(System, k) for k in ("__init__", "pub_imu", "pub_image")}
+    trk_orig = {k: getattr(FeatureTracker, k) for k in ("dispatch", "collect")}
+    push_orig, pnp_orig = PoseGraphBuilder.push, builder_mod.pnp_ransac_gn
+
+    def init(self, *a, **k):
+        orig["__init__"](self, *a, **k)
+        made.append(self)
+        self._init_at = _watch_init(self.estimator, image_ts)
+
+    def pub_imu(self, *a):
+        t0 = time.perf_counter()
+        orig["pub_imu"](self, *a)
+        acc["imu"] += time.perf_counter() - t0
+
+    def pub_image(self, t, img):
+        k = len(frame_log)
+        if k == n - SYSTEM_PROFILED:
+            torch.cuda.synchronize(dev)
+            # device activity only: recording every CPU operator would slow the
+            # profiled frames' host and take minutes to read back
+            acc["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            acc["prof"].__enter__()
+            acc["prof_t0"] = time.perf_counter()
+        kf0, loops0 = self.pgbuilder.db.n, self.pgbuilder.n_loops
+        t0 = time.perf_counter()
+        orig["pub_image"](self, t, img)
+        ms = (time.perf_counter() - t0 + acc["imu"]) * 1e3
+        # read from the frame thread while the worker may be writing: a
+        # count that lands a frame late only moves a frame between groups
+        frame_log.append((ms, acc["trk"] * 1e3, self.estimator.solver_flag,
+                          self.pgbuilder.db.n > kf0, self.pgbuilder.n_loops > loops0))
+        acc["imu"] = acc["trk"] = 0.0
+        if k == n - 1:
+            torch.cuda.synchronize(dev)
+            acc["prof_ms"] = (time.perf_counter() - acc["prof_t0"]) * 1e3
+            acc["prof"].__exit__(None, None, None)
+            acc["prof_exit_s"] = time.perf_counter() - acc["prof_t0"] - acc["prof_ms"] / 1e3
+
+    def trk_timed(name):
+        def timed(self, *a, **k):
+            t0 = time.perf_counter()
+            out = trk_orig[name](self, *a, **k)
+            acc["trk"] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def push(self, *a, **k):
+        t0 = time.perf_counter()
+        idx = push_orig(self, *a, **k)
+        push_log.append(((time.perf_counter() - t0) * 1e3, idx is not None))
+        return idx
+
+    def pnp_timed(*a, **k):
+        t0 = time.perf_counter()
+        out = pnp_orig(*a, **k)
+        pnp_log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    System.__init__, System.pub_imu, System.pub_image = init, pub_imu, pub_image
+    FeatureTracker.dispatch, FeatureTracker.collect = trk_timed("dispatch"), trk_timed("collect")
+    PoseGraphBuilder.push, builder_mod.pnp_ransac_gn = push, pnp_timed
+    out_dir = work / "out"
+    before_mb = torch.cuda.memory_allocated(dev) / 2**20  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    perf.reset()
+    perf.enable(True)
+    ops.reset_launch_counts()  # just before the main path
+    t0 = time.perf_counter()
+    try:
+        res = run_euroc.main([mav0, "--out-dir", str(out_dir)], cfg=cfg, dims=dims)
+    finally:
+        perf.enable(False)
+        for k, v in orig.items():
+            setattr(System, k, v)
+        FeatureTracker.dispatch, FeatureTracker.collect = trk_orig["dispatch"], trk_orig["collect"]
+        PoseGraphBuilder.push, builder_mod.pnp_ransac_gn = push_orig, pnp_orig
+    drive_s = time.perf_counter() - t0
+    counts = ops.launch_counts()  # just after the main path
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20 - before_mb
+    sys_ = made[0]
+    pg, db = sys_.pgbuilder, sys_.pgbuilder.db
+
+    t0 = time.perf_counter()
+    busy_ms, n_dev_events, _ = _device_busy(acc["prof"])
+    readback_s = time.perf_counter() - t0
+    flags = [r[2] for r in frame_log]
+    first = flags.index(NON_LINEAR)
+    steady = [r for k, r in enumerate(frame_log) if first < k < n - SYSTEM_PROFILED]
+    ms = np.array([r[0] for r in steady])
+    trk_ms = np.array([r[1] for r in steady])
+    tail = ms[len(ms) // 2:]
+    kf_ms = [r[0] for r in steady if r[3]]
+    other_ms = [r[0] for r in steady if not r[3]]
+    # the tail's slow frames (over twice its median): how many saw the worker
+    # add a keyframe, and close a loop
+    slow = [r for r in steady[len(steady) // 2:] if r[0] > 2 * float(np.median(tail))]
+    slow_frames = {"count": len(slow), "worker_kf": sum(r[3] for r in slow),
+                   "loop": sum(r[4] for r in slow), "ms": [round(r[0], 1) for r in slow]}
+    traj = sys_.vio_trajectory
+    t_est = np.array([t for (t, _, _) in traj])
+    p_est = np.array([P for (_, P, _) in traj])
+    ts_kf, t_opt, _ = pg.trajectory()
+    n_loops, precision = _loop_precision(db, gt)
+    ate = lambda t, p: float(ate_rmse(t, p, gt["t"], gt["p"], align="se3"))
+    asym, neg = _check_outputs(out_dir, int(db.n))
+    kf_push = [m for (m, made_kf) in push_log if made_kf]
+    rec = {
+        "frames": res["n_frames"], "sys_init_frame": sys_._init_at[0] if sys_._init_at else None,
+        "solved_poses": len(traj),
+        "tracker_ms_per_frame_median": float(np.median(trk_ms)),
+        "pipeline_ms_per_frame_median": float(np.median(ms)),
+        "pipeline_ms_per_frame_p90": float(np.percentile(ms, 90)),
+        "pipeline_ms_per_frame_max": float(ms.max()),
+        "pipeline_fps": 1e3 / float(np.median(ms)),
+        "steady_frames_timed": len(ms),
+        "tail_ms_median": float(np.median(tail)), "tail_ms_p90": float(np.percentile(tail, 90)),
+        "tail_ms_max": float(tail.max()),
+        "frame_ms_median_worker_kf": float(np.median(kf_ms)) if kf_ms else None,
+        "frame_ms_median_no_kf": float(np.median(other_ms)) if other_ms else None,
+        "frames_worker_kf": len(kf_ms), "tail_slow_frames": slow_frames,
+        "pg_push_ms_median_kf": float(np.median(kf_push)) if kf_push else None,
+        "pg_pnp_calls": len(pnp_log), "pg_first_stream_pnp_ms": pnp_log[0] if pnp_log else None,
+        "first_pnp_fresh_process": pnp,
+        "keyframes": int(db.n), "loops_closed": n_loops, "loop_precision_vs_gt": precision,
+        "n_async_collects": int(pg.n_async_collects),
+        "n_async_dispatches": int(pg.n_async_dispatches),
+        "k6_queries": len(db.match_count_queries),
+        "ate_se3_m_vio": ate(t_est, p_est), "ate_se3_m_kf_vio": ate(ts_kf, db.vio_t[: db.n]),
+        "ate_se3_m_loop_opt": ate(ts_kf, t_opt),
+        "csv_parser": ds.csv_parser, "render_s": render_s, "write_s": write_s,
+        "drive_s": drive_s, "max_memory_allocated_mb": peak_mb,
+        "memory_allocated_before_mb": before_mb,
+        "busy_share_profiled": busy_ms / acc["prof_ms"], "profiled_frames": SYSTEM_PROFILED,
+        "profiled_wall_ms": acc["prof_ms"], "profiled_busy_ms": busy_ms,
+        "profiled_device_events": n_dev_events, "profiler_exit_s": acc["prof_exit_s"],
+        "busy_readback_s": readback_s, "first_pnp_processes_s": pnp_s,
+        "cov_worst_asymmetry": asym, "cov_worst_negative_eig": neg,
+        "launches": counts, "failure_count": int(sys_.estimator.failure_count),
+        "phases": perf.stats(), "reference": ref,
+    }
+    print(f"[system] {rec['frames']} frames in {drive_s:.1f} s: initialized on frame "
+          f"{rec['sys_init_frame']}'s packet (JAX {ref['sys_init_frame']}), {len(traj)} poses, "
+          f"{db.n} keyframes (JAX {ref['keyframes']}), {n_loops} loops (JAX "
+          f"{ref['loops_closed']}), precision {precision} (JAX {ref['loop_precision_vs_gt']})")
+    print(f"[system] ATE se3: vio {rec['ate_se3_m_vio']:.4f} m, keyframe vio "
+          f"{rec['ate_se3_m_kf_vio']:.4f}, loop-optimized {rec['ate_se3_m_loop_opt']:.4f} (JAX "
+          f"{ref['ate_se3_m_vio']:.4f}, {ref['ate_se3_m_kf_vio']:.4f}, "
+          f"{ref['ate_se3_m_loop_opt']:.4f})")
+    print(f"[system] steady frame ({len(ms)} timed): median {rec['pipeline_ms_per_frame_median']:.1f}"
+          f" ms, p90 {rec['pipeline_ms_per_frame_p90']:.1f}, max "
+          f"{rec['pipeline_ms_per_frame_max']:.1f}; tracker {rec['tracker_ms_per_frame_median']:.1f}"
+          f" ms; frames during a worker keyframe {rec['frame_ms_median_worker_kf']} ms "
+          f"({len(kf_ms)}) against {rec['frame_ms_median_no_kf']} ms; card busy "
+          f"{busy_ms:.1f} of {acc['prof_ms']:.1f} ms over the last {SYSTEM_PROFILED} frames "
+          f"(under torch.profiler); peak memory {peak_mb:.0f} MiB over the {before_mb:.0f} MiB held "
+          f"before; launches {counts}")
+    print(f"[system] the tail's frames over twice its median: {slow_frames}")
+    print("[system] utils/perf phases over the drive (worker's pg.* beside the frame thread's):\n"
+          + perf.report(len(frame_log)))
+    print(json.dumps({"system": rec, "card": smi}))
+
+    fails = []
+    if ds.csv_parser != "native":
+        fails.append(f"IMU CSV parsed by {ds.csv_parser}, not the native parser")
+    if rec["sys_init_frame"] is None or abs(rec["sys_init_frame"] - ref["sys_init_frame"]) > 2:
+        fails.append(f"sys_init_frame {rec['sys_init_frame']} not within 2 of "
+                     f"{ref['sys_init_frame']}")
+    if abs(db.n - ref["keyframes"]) > 0.1 * ref["keyframes"]:
+        fails.append(f"{db.n} keyframes, not within 10 % of {ref['keyframes']}")
+    if n_loops < 1 or precision < ref["loop_precision_vs_gt"]:
+        fails.append(f"{n_loops} loops at precision {precision} (JAX "
+                     f"{ref['loop_precision_vs_gt']})")
+    if not rec["ate_se3_m_loop_opt"] <= 1.5 * ref["ate_se3_m_loop_opt"] + 0.05:
+        fails.append(f"ate_se3_m_loop_opt {rec['ate_se3_m_loop_opt']} > 1.5 x JAX's + 0.05 m")
+    if not rec["ate_se3_m_loop_opt"] <= 0.5 * rec["ate_se3_m_kf_vio"]:
+        fails.append(f"ate_se3_m_loop_opt {rec['ate_se3_m_loop_opt']} > half the keyframe VIO "
+                     f"ATE {rec['ate_se3_m_kf_vio']}")
+    if len(tail) < 20 or rec["tail_ms_p90"] > 3 * rec["tail_ms_median"] \
+            or rec["tail_ms_max"] > 8 * rec["tail_ms_median"]:
+        fails.append(f"frames stall over the second half of the steady frames: median "
+                     f"{rec['tail_ms_median']}, p90 {rec['tail_ms_p90']}, max {rec['tail_ms_max']}")
+    if n_dev_events == 0:
+        fails.append("torch.profiler recorded no device event over the profiled frames")
+    if sys_._pg_exc is not None or pg._pending_opt is not None:
+        fails.append("the worker parked an error or an optimization is pending after flush()")
+    if rec["failure_count"] != 0:
+        fails.append(f"failure_count {rec['failure_count']}")
+    on_path = ("proj_rows", "imu_rows", "schur_corr", "linstep", "retrieval_scores")
+    if any(counts[k] <= 0 for k in on_path) or counts["chol_solve_batched"] \
+            or counts["schur_reduce"]:
+        fails.append(f"system-path launches {counts}: K1-K4 and K6 must run, K5 and K7 not")
+    if counts["retrieval_scores"] != len(db.match_count_queries):
+        fails.append(f"K6 launches {counts['retrieval_scores']} != its queries "
+                     f"{len(db.match_count_queries)}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts, rec
+
+
 def main():
     import torch
 
+    phase_s, t = {}, [time.perf_counter()]
+
+    def lap(name):  # wall seconds of each phase, printed with the results
+        now = time.perf_counter()
+        phase_s[name] = round(now - t[0], 1)
+        t[0] = now
+
     dev, smi = phase_device()
     phase_build()
+    lap("device+build")
     records = phase_kernels(dev)
+    lap("kernels")
     solve = phase_solve(dev)
+    lap("solve")
     _, sl = phase_slice(dev)
+    lap("slice")
     counts, pg = phase_posegraph(dev)
+    lap("posegraph")
     ms_counts, ms = phase_multiseq_solve(dev, solve["vio_window_solve_frames_per_s"],
                                          records["chol_solve_batched"]["ms"])
     est_counts, ms_est = phase_multiseq_estimators(dev)
+    lap("multiseq")
     red_counts = phase_reduce(dev)
-    pix_counts, pix, trk = phase_pixels(dev, smi)
+    lap("reduce")
+    world, frames = room_world(system_config()[0], SYSTEM_FRAMES)
+    lap("render")
+    render_s = phase_s["render"]
+    print(f"[render] {SYSTEM_FRAMES} frames at 752x480 in {render_s:.1f} s")
+    pix_counts, pix, trk = phase_pixels(dev, smi, world, frames, render_s)
+    lap("pixels")
     nullspace = nullspace_cost(dev)  # its host times before phase_profiler's tracing
     phase_profiler(dev, records)
     pix.update(tracker_launches(dev, trk))  # the profiler's count, after its phase
+    lap("profiler")
+    sys_counts, system = phase_system(dev, smi, world, frames, render_s)
+    lap("system")
     # K5's launches are the multiseq path's (both halves), K7's its own
-    # path's, the others' the posegraph path's; `launches_pixels` is the
-    # pixels path's
+    # path's, the others' the posegraph path's; `launches_pixels` and
+    # `launches_system` are the pixels and system paths'
     counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
-                      "multiseq": {**ms, **ms_est}, "pixels": pix, "nullspace": nullspace}))
+                      "multiseq": {**ms, **ms_est}, "pixels": pix, "system": system,
+                      "nullspace": nullspace, "phase_s": phase_s}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1], "launches": counts[k],
-         "launches_pixels": pix_counts[k], **records[k]}
+         "launches_pixels": pix_counts[k], "launches_system": sys_counts[k], **records[k]}
         for k in KERNEL_META]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

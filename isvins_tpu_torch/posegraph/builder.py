@@ -34,7 +34,7 @@ from ..initial.pnp import pnp_ransac_gn
 from ..utils import perf
 from .brief import brief_descriptors, make_brief_pattern, match_descriptors_clean
 from .keyframe_db import KeyframeDB
-from .optimize import optimize_pose_graph
+from .optimize import _optimize_core, optimize_pose_graph
 
 _log = logging.getLogger(__name__)
 
@@ -104,12 +104,46 @@ class PoseGraphBuilder:
         self.n_sequence_aligns = 0
 
     def prewarm(self):
-        """Build the kernel library before streaming (a CUDA builder's
-        first query would otherwise pay the nvcc build)."""
-        if self.device.type == "cuda":
+        """Run the builder's device work once before streaming (System runs
+        it first on its pose-graph worker): the kernel library's build, the
+        keyframe step on a zero image, the descriptor matcher, PnP at 16,
+        64, 128 and 256 points, and an optimization of 64 poses and 64
+        loops (the reference's first capacity rung).
+        On the card the first of each pays the CUDA libraries' start-up
+        (cuBLAS, cuSOLVER), which would otherwise land mid-stream at the
+        first keyframe or loop. Nothing here touches the database; a
+        failure raises."""
+        dev = self.device
+        if dev.type == "cuda":
             from ..ops import _lib
 
             _lib.lib()
+        P, D = self.db.P, self.db.D
+        cc = self.cfg.camera
+        self._kf_device_step(np.zeros((cc.height, cc.width), np.float32), np.zeros((P, 2)),
+                             np.zeros(P, bool))
+        words = lambda n: torch.zeros((n, 8), dtype=torch.int32, device=dev)
+        flags = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
+        match_descriptors_clean(words(P), flags(P), words(D), flags(D),
+                                ham_thresh=self.pg.hamming_thresh)
+        rng = np.random.default_rng(0)
+        q0 = np.array([1.0, 0.0, 0.0, 0.0])
+        for n in (16, 64, 128, 256):
+            if n > P:
+                break
+            pnp_ransac_gn(rng.normal(size=(n, 3)) + np.array([0.0, 0.0, 5.0]),
+                          rng.normal(size=(n, 2)) * 0.1, q0, np.zeros(3),
+                          thresh=self.pg.pnp_inlier_thresh, device=dev)
+        K = L = 64
+        sdtype = torch.float64 if dev.type == "cpu" else torch.float32
+        z = lambda *s: torch.zeros(s, dtype=sdtype, device=dev)
+        qs = lambda n: torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=sdtype, device=dev).repeat(n, 1)
+        idx = torch.zeros(L, dtype=torch.int64, device=dev)
+        _optimize_core(z(K, 3), qs(K), z(K, 3), qs(K), z(K, 6, 6), flags(K),
+                       qs(K), z(K, 2, 2), flags(K),
+                       idx, idx, z(L, 3), qs(L), z(L), flags(L), flags(K), iters=10)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
 
     def new_sequence(self):
         """Stream discontinuity: start a new pose-graph sequence

@@ -15,6 +15,8 @@ writes one row into, so a query uploads nothing.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -204,6 +206,17 @@ class KeyframeDB:
     def flush_bow(self):
         """Complete any amortized post-freeze tf backfill."""
         self._drain_bow_backlog(len(self._bow_backlog))
+
+    def flushed_bow(self):
+        """(tf, df) as flush_bow() would leave them, computed on a shallow
+        copy that owns copies of tf, df and the backlog (and builds its own
+        word index): the database itself is not written, so a snapshot
+        never races the builder that fills it."""
+        shadow = copy.copy(self)
+        shadow.tf, shadow.df = self.tf.copy(), self.df.copy()
+        shadow._bow_backlog = list(self._bow_backlog)
+        shadow.flush_bow()
+        return shadow.tf, shadow.df
 
     def _drain_bow_backlog(self, k: int):
         for j in self._bow_backlog[:k]:

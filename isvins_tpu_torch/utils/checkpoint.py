@@ -1,8 +1,18 @@
-"""Snapshots (port of isvins_tpu/utils/checkpoint.py `load_estimator` and
-`load_pose_graph`). The npz files written by the JAX package's
-`save_estimator` and `save_pose_graph` are the contract: their keys are
-read unchanged, so a JAX run or map can be resumed by the port. Saving is
-not ported yet."""
+"""Snapshots of the pose graph and of the estimator (port of
+isvins_tpu/utils/checkpoint.py): flat npz files of the keyframe database
+(its SoA arrays, loop edges, descriptors and bag-of-words state) and of the
+estimator's window state and prior set, so that a session can resume or
+relocalize against a prior map. The keys are the JAX package's: each
+package loads the other's files.
+
+Two faults of the reference are not copied. `save_estimator` collects a
+pending async solve before the pending marginalization (the reference
+quiesces only the latter, so a snapshot taken between a dispatch and its
+collect lost the frame's solve). `save_pose_graph` completes the
+amortized bag-of-words backfill on copies of `tf` and `df`, leaving the
+live database as it was (the reference ran `flush_bow()` on the database
+itself, which a pose-graph worker thread may be writing).
+"""
 
 from __future__ import annotations
 
@@ -17,6 +27,18 @@ _DB_FIELDS = [
     "win_pts3d", "win_desc", "win_valid",
     "ret_desc", "ret_valid",
 ]
+
+
+def save_pose_graph(db, path: str):
+    """Write the keyframe database to `path` (npz). Reads the database and
+    writes nothing to it; a System running its pose graph on a worker
+    (`pg_thread=True`) is saved after `System.wait_pg_ready()`, when the
+    worker is idle."""
+    n = db.n
+    tf, df = db.flushed_bow()
+    arrays = {f: getattr(db, f)[:n] for f in _DB_FIELDS}
+    np.savez_compressed(path, n=n, K=db.K, D=db.D, P=db.P, tf=tf[:n], df=df, vocab=db.vocab,
+                        vocab_frozen=db.vocab_frozen, **arrays)
 
 
 def load_pose_graph(path: str, capacity: int = 0, device=None):
@@ -45,6 +67,44 @@ def load_pose_graph(path: str, capacity: int = 0, device=None):
         db._wg_centers = None  # the 2-level word index rebuilds lazily
     db.n = n
     return db
+
+
+def save_estimator(est, path: str):
+    """Write the estimator's state to `path` (npz). A pending async solve is
+    collected first, then a pending marginalization, so the snapshot holds
+    the slid window and its post-slide priors (a pending future cannot be
+    serialized, and dropping it would fork the resumed trajectory)."""
+    est.collect_solve()
+    est.collect_marg()
+    pr = est.priors
+    prior_arrays = {}
+    if pr is not None:
+        prior_arrays = {
+            "pr_se3_t": pr.se3_t, "pr_se3_q": pr.se3_q, "pr_se3_sqrt": pr.se3_sqrt,
+            "pr_se3_valid": pr.se3_valid, "pr_vb": pr.vb, "pr_vb_sqrt": pr.vb_sqrt,
+            "pr_vb_valid": pr.vb_valid, "pr_rel_dt": pr.rel_dt, "pr_rel_dq": pr.rel_dq,
+            "pr_rel_sqrt": pr.rel_sqrt, "pr_rel_valid": pr.rel_valid,
+            "pr_rp_q": pr.rp.q_meas, "pr_rp_sqrt": pr.rp.sqrt_info,
+            "pr_rp_idx": pr.rp.idx, "pr_rp_valid": pr.rp.valid,
+        }
+        prior_arrays = {k: np.asarray(v) for k, v in prior_arrays.items()}
+    fm = est.f_manager
+    np.savez_compressed(
+        path,
+        Ps=est.Ps, Qs=est.Qs, Vs=est.Vs, Bas=est.Bas, Bgs=est.Bgs,
+        Headers=est.Headers, tic=est.tic, qic=est.qic,
+        imu_dt=est.imu_dt, imu_acc=est.imu_acc, imu_gyr=est.imu_gyr,
+        imu_acc0=est.imu_acc0, imu_gyr0=est.imu_gyr0, imu_cnt=est.imu_cnt,
+        imu_overflow=est.imu_overflow,
+        frame_count=est.frame_count, solver_flag=est.solver_flag,
+        acc_0=est.acc_0, gyr_0=est.gyr_0, first_imu=est.first_imu,
+        marginalization_flag=est.marginalization_flag,
+        has_priors=pr is not None,
+        fm_ids=fm.ids, fm_start=fm.start, fm_obs=fm.obs, fm_vel=fm.vel,
+        fm_has_obs=fm.has_obs, fm_depth=fm.depth, fm_solve_flag=fm.solve_flag,
+        fm_outlier=fm.outlier,
+        **prior_arrays,
+    )
 
 
 def load_estimator(est, path: str):

@@ -10,8 +10,9 @@ distortion, max_cnt 150, min_dist 25, 4 LK levels, CLAHE; window
 N_FRAMES = 60 frames (chip_smoke.py's PIXELS_FRAMES), with the pose graph
 off and no ground-truth hook: the estimator self-initializes. Frames are
 rendered before the drive, which goes through System(cfg, dims,
-enable_loop=False). Prints one JSON line: the frame at which
-initialization succeeded (`pix_init_frame`), the solved poses,
+enable_loop=False). Prints one JSON line: the frame whose packet the
+estimator initialized on (`pix_init_frame`, counted by packet as
+chip_smoke._watch_init counts it), the solved poses,
 `ate_rmse(align="se3")` of them against ground truth, and the
 median count of features published per frame.
 """
@@ -79,7 +80,15 @@ def main():
 
     FeatureTracker.read_image = counted
     sys_ = System(cfg, dims, enable_loop=False)
-    init_frame = None
+    est, process_image, init_at = sys_.estimator, sys_.estimator.process_image, []
+
+    def watched(ids, pts, t, vels=None):
+        out = process_image(ids, pts, t, vels=vels)
+        if not init_at and est.solver_flag == 2:
+            init_at.append(int(np.argmin(np.abs(world.frame_times - t))))
+        return out
+
+    est.process_image = watched
     t0 = time.time()
     try:
         for k in range(N_FRAMES):
@@ -89,8 +98,6 @@ def main():
                     acc_t += world.imu_dts[k - 1][s]
                     sys_.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
             sys_.pub_image(world.frame_times[k], frames[k])
-            if init_frame is None and sys_.estimator.solver_flag == 2:
-                init_frame = k
         sys_.flush()
     finally:
         FeatureTracker.read_image = read_image
@@ -101,7 +108,8 @@ def main():
         if len(traj) >= 3 else None
     print(json.dumps({
         "reference": "isvins_tpu System on the CPU", "backend": jax.default_backend(),
-        "frames": N_FRAMES, "pix_init_frame": init_frame, "solved_poses": len(traj),
+        "frames": N_FRAMES, "pix_init_frame": init_at[0] if init_at else None,
+        "solved_poses": len(traj),
         "pix_ate_vio_m": ate, "pix_tracks_median": float(np.median(published[1:])),
         "failure_count": int(sys_.estimator.failure_count),
         "render_s": round(render_s, 1), "drive_s": round(time.time() - t0, 1)}))

@@ -306,3 +306,41 @@ def test_min_eigvec_sym4_against_eigh(dt, tol):
         assert (err * (w[:, 1] - w[:, 0]) / w[:, 3]).max() < 1e-9
     z = min_eigvec_sym4(torch.zeros((3, 4, 4), dtype=dt))
     assert bool(torch.isfinite(z).all())
+
+
+def test_e2e_noisy():
+    """tests/test_estimator_e2e.py::test_e2e_noisy on the port: run_sequence's
+    noisy world (0.5 px projection noise, IMU noise with consistently
+    weighted factors, seed 5, 26 frames, ground-truth init), with the
+    reference's bounds: 4-DoF-aligned max error under 0.12 m, unaligned
+    under 0.5 m, no failure reset."""
+    from isvins_tpu_torch.config import NoiseConfig
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.utils.synthetic import make_world, project
+
+    seed = 5
+    cfg = _port_config().replace(noise=NoiseConfig(acc_n=0.01, gyr_n=0.001, acc_w=1e-4,
+                                                   gyr_w=1e-5))
+    world = make_world(n_frames=N_FRAMES, n_landmarks=240, seed=seed, noise_acc=0.02,
+                       noise_gyr=0.002)
+    est = TEstimator(cfg, TDims(B=10, Vo=4, F=256, N=2048), device="cpu")
+    est._gt_init = _gt_hook(world)
+    rng = np.random.default_rng(seed + 100)
+    tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(np.asarray(cfg.ric_np))
+    traj = []
+    for k in range(N_FRAMES):
+        if k > 0:
+            for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                est.process_imu(world.imu_dts[k - 1][s], world.imu_accs[k - 1][s],
+                                world.imu_gyrs[k - 1][s])
+        pts, _, vis = project(world, k, tic, qic, px_noise=0.5 / 460.0, rng=rng)
+        est.process_image(np.where(vis)[0], pts[vis], world.frame_times[k])
+        if est.solver_flag == 2:
+            traj.append((world.frame_times[k], est.latest_pose()[1].copy(), k))
+    est.close()
+    assert len(traj) >= 10
+    emax, emean = ate(traj, world, align=True)
+    assert emax < 0.12, (emax, emean)
+    emax_raw, _ = ate(traj, world)
+    assert emax_raw < 0.5, emax_raw
+    assert est.failure_count == 0

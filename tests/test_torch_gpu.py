@@ -739,6 +739,113 @@ def test_self_init_on_card():
     assert est.failure_count == 0
 
 
+def _system_drive(dev, pg_thread):
+    """tests/test_torch_system.py's 16-frame 320x240 drive with the pose
+    graph on, a 2.5 s gap before the last frame, through System on `dev`."""
+    from isvins_tpu_torch.config import (CameraConfig, NoiseConfig, PoseGraphConfig,
+                                         TrackerConfig, WindowConfig, euroc_config)
+    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
+    from isvins_tpu_torch.solver import WindowDims
+    from isvins_tpu_torch.system import System
+    from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world
+
+    R_bc = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+    cam = CameraConfig(width=320, height=240, fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                       k1=0.0, k2=0.0, p1=0.0, p2=0.0)
+    cfg = euroc_config().replace(
+        camera=cam,
+        tracker=TrackerConfig(max_cnt=70, min_dist=16, freq=100, lk_levels=4, lk_win=21,
+                              equalize=False, border=4),
+        window=WindowConfig(vo_size=4, all_size=10, max_features=256, max_imu_per_frame=64),
+        noise=NoiseConfig(acc_n=0.05, gyr_n=0.005, acc_w=1e-4, gyr_w=1e-5, pixel_sqrt_info=200.0),
+        solver=euroc_config().solver.__class__(excitation_threshold=0.08),
+        posegraph=PoseGraphConfig(enabled=True, keyframe_min_dist=0.15, skip_recent=100,
+                                  max_keyframes=64, max_kp_per_kf=128),
+        tic=(0.0, 0.0, 0.0), ric=R_bc)
+    n = 16
+    world = make_world(n_frames=n, frame_hz=10.0, imu_hz=200.0, n_landmarks=500, seed=3)
+    r = RoomRenderer(world, cam, np.zeros(3), mat_to_quat_np(np.array(R_bc)))
+    sys_ = System(cfg, WindowDims(B=10, Vo=4, F=256, N=2048), pipeline=True,
+                  pg_thread=pg_thread, device=dev)
+    try:
+        for k in range(n):
+            if k > 0:
+                acc_t = world.frame_times[k - 1]
+                for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                    acc_t += world.imu_dts[k - 1][s]
+                    sys_.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
+            sys_.pub_image(world.frame_times[k] + (2.5 if k == n - 1 else 0.0), r.render(k)[0])
+        sys_.flush()
+    finally:
+        sys_.close()
+    return sys_
+
+
+@pytest.mark.gpu
+def test_system_pg_thread_matches_inline_on_card():
+    """System on the card with the pose graph on its worker thread (a CUDA
+    stream of its own) against the inline builder: the same keyframes, the
+    same sequence break, the same loop_tum() and vio_tum() text (the card's
+    f32 solve and keyframe step repeat bit for bit, so the thread changes
+    only where the work runs)."""
+    dev = _card()
+    a, b = _system_drive(dev, False), _system_drive(dev, True)
+    n = a.pgbuilder.db.n
+    assert n == b.pgbuilder.db.n > 0 and len(a.vio_trajectory) > 0
+    assert a.pgbuilder.sequence == b.pgbuilder.sequence == 2
+    np.testing.assert_array_equal(a.pgbuilder.db.ts[:n], b.pgbuilder.db.ts[:n])
+    assert a.loop_tum() == b.loop_tum()
+    assert a.vio_tum() == b.vio_tum()
+
+
+@pytest.mark.gpu
+def test_png_round_trip_feeds_the_card_tracker(tmp_path):
+    """A rendered 752x480 frame through the port's PNG codec (the card's
+    machine has no PIL): the decoded pixels equal the frame's, for the Up
+    rows the encoder writes and for a file with all five row filters, and
+    the decoded f32 image gives the card's tracker the same packet as the
+    uint8 frame."""
+    dev = _card()
+    import struct
+    import zlib
+
+    from isvins_tpu_torch.config import TrackerConfig
+    from isvins_tpu_torch.data import png
+    from isvins_tpu_torch.frontend import FeatureTracker
+
+    cam, world, frames = _room_frames(2, W=752, H=480)
+    path = str(tmp_path / "f.png")
+    png.write_png(path, frames[1])
+    img = png.read_png(path)
+    np.testing.assert_array_equal(img, frames[1])
+    # Sub rows and Paeth rows, filtered here by the spec's forward filters
+    x = frames[1].astype(np.int64)
+    left = np.concatenate([np.zeros((480, 1), np.int64), x[:, :-1]], axis=1)
+    up = np.concatenate([np.zeros((1, 752), np.int64), x[:-1]], axis=0)
+    ul = np.concatenate([np.zeros((1, 752), np.int64), left[:-1]], axis=0)
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    types = np.arange(480) % 5
+    pred = np.select([types[:, None] == t for t in (1, 2, 3, 4)],
+                     [left, up, (left + up) // 2, paeth], 0)
+    raw = np.concatenate([types[:, None], (x - pred) % 256], axis=1).astype(np.uint8)
+    chunk = lambda k, d: (struct.pack(">I", len(d)) + k + d
+                          + struct.pack(">I", zlib.crc32(k + d)))
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 752, 480, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+    np.testing.assert_array_equal(png.decode_png(data), frames[1])
+    cfg = TrackerConfig(max_cnt=150, min_dist=25, freq=100, lk_levels=4, lk_win=21,
+                        equalize=True, border=4)
+    outs = []
+    for second in (frames[1], img.astype(np.float32)):
+        tr = FeatureTracker(cam, cfg, device=dev)
+        tr.read_image(frames[0], world.frame_times[0])
+        outs.append(tr.read_image(second, world.frame_times[1]))
+    for k in outs[0]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k])
+
+
 def test_resolve_device_without_a_card_raises():
     """`None` means the card: without one it raises, and so does every entry
     point that resolves its device from None; the CPU is used only when the
@@ -775,9 +882,11 @@ def test_entry_points_default_to_the_card_and_take_cpu(tmp_path):
     from isvins_tpu_torch.utils.checkpoint import load_pose_graph
 
     from isvins_tpu_torch.frontend import FeatureTracker
+    from isvins_tpu_torch.posegraph import PoseGraphBuilder
+    from isvins_tpu_torch.system import System
 
     for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__,
-               FeatureTracker.__init__):
+               FeatureTracker.__init__, PoseGraphBuilder.__init__, System.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert inspect.signature(MultiSequenceSolver.__init__).parameters["devices"].default is None
     for cls in (FeatureManager, KeyframeDB):
