@@ -103,11 +103,24 @@ Each path's launch counts are set to 0 just before it and read just after.
                within 1.5x + 5 cm and under half the keyframe VIO ATE, no
                stalling frame); the first PnP of a fresh process with and
                without the builder's prewarm
+ 12. pgdist  — the pose graph across devices (ROADMAP A5), the card listed nd
+               times in one process: scaling_bench.py's product
+               configuration (K = 1024, 64 loops, 3 iterations, with
+               covariance) through the edge-sharded dense solve and the
+               nested-dissection solve at nd = 2, 4, 8, in f64 against the
+               f64 solve on ["cpu"] * 8 at the reference tests' tolerances
+               and in f32 (timed) within the f32 bounds; the 4096-pose
+               clamp, dd against dense on the card; the router's async dd
+               dispatch of a 600-keyframe graph under
+               set_sync_debug_mode("error"), held to the dense route and to
+               the f64 router, the loop closed; wall, enqueue, busy time,
+               kernels per solve, peak memory; no K1-K7 launch
 An earlier line: {"launch_floor_ms": {"graph": t, "eager": t}}.
 Second-to-last line: one JSON object with the per-kernel records of all
 seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
-multiseq path, K7 from the reduce path; launches_pixels and launches_system
-from the pixels and system paths); last line: {"ok": true, "device": {...}}.
+multiseq path, K7 from the reduce path; launches_pixels, launches_system
+and launches_pgdist from the pixels, system and pgdist paths); last line:
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2689,6 +2702,379 @@ def phase_system(dev, smi, world, frames, render_s):
     return counts, rec
 
 
+# The pose graph across devices (ROADMAP A5). (a) The reference's product
+# configuration, scaling_bench.bench_posegraph_dd (scaling_bench.py:100-147):
+# K = 1024 poses, E = K chain edges, K / 16 loops, 3 GN iterations, with
+# covariance, over 2, 4 and 8 devices (the card listed nd times). (b) Its
+# upper end, the PoseGraphConfig.max_active_poses clamp: K = 4096, 256 loops,
+# nd = 8. (c) The router on a 600-keyframe database (the K = 1024 bucket).
+PGDIST_K, PGDIST_ITERS, PGDIST_ND = 1024, 3, (2, 4, 8)
+PGDIST_CLAMP_K, PGDIST_CLAMP_ND = 4096, 8
+ROUTER_KF, ROUTER_LOOPS, ROUTER_DEVICES = 600, 16, 8
+# f64 solves are held to the reference's own tests' tolerances
+# (tests/test_distributed.py:245-250): poses atol 1e-10, covariance rtol 1e-6
+# atol 2e-8, cost rtol 1e-12
+F64_BOUNDS = {"t": 1e-10, "q": 1e-10, "cov_rtol": 1e-6, "cov_atol": 2e-8, "cost_rtol": 1e-12}
+# f32 solves are held to the f64 answer within the bounds _replay_last_solve
+# uses (256 f32 ulps of the largest coordinate, of 1.0 for quaternions;
+# covariance blocks 5 %), or within F32_MARGIN times the error of an f32 solve
+# of the same configuration by other arithmetic (the CPU's, or the card's
+# dense solve), where that is larger: GN's steps in f32 on a system of
+# thousands of poses carry cond(H) times f32 rounding, which the 256 ulps
+# (sized for a converged segment of tens of poses) do not cover
+F32_MARGIN = 4.0
+
+
+def posegraph_problem(K, E, n_loops, seed=0):
+    """scaling_bench._posegraph_problem (scaling_bench.py:73-97) in numpy,
+    f64, the same draws in the same order: a random-walk chain of K poses
+    (pose 0 fixed), E chain edges k -> k + 1 (the last ones clamped to
+    K - 2 -> K - 1) with sqrt-information 20 I, a roll-pitch edge on every
+    pose (5 I), max(16, n_loops) loops of weight 100 from the first half to
+    the second. The 20 arrays of distributed_pose_graph_solve."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ident = lambda n: np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))
+    t = np.cumsum(rng.normal(size=(K, 3)) * 0.05, axis=0)
+    e_i = np.minimum(np.arange(E), K - 2).astype(np.int32)
+    e_dt = rng.normal(size=(E, 3)) * 0.05
+    L = max(16, n_loops)
+    loop_i = rng.integers(0, K // 2, L).astype(np.int32)
+    loop_j = rng.integers(K // 2, K - 1, L).astype(np.int32)
+    loop_dt = rng.normal(size=(L, 3)) * 0.05
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    return (t, ident(K), np.ones(K, bool), fixed,
+            e_i, e_i + 1, e_dt, ident(E), np.tile(np.eye(6)[None] * 20.0, (E, 1, 1)),
+            np.ones(E, bool),
+            np.arange(K, dtype=np.int32), ident(K), np.tile(np.eye(2)[None] * 5.0, (K, 1, 1)),
+            np.ones(K, bool),
+            loop_i, loop_j, loop_dt, ident(L), np.ones(L) * 100.0, np.ones(L, bool))
+
+
+def drifted_circle_db(make_db, n, n_loops):
+    """tests/test_distributed.py:16-44 at n keyframes: a circle of radius 5 m
+    whose VIO poses drift in yaw and translation (by keyframe n - 1 as much
+    as that test's 40 do), ground-truth chain edges (sqrt-information 30 I)
+    and n_loops loop edges of weight 500, from keyframe n - n_loops + l back
+    to keyframe l (at n = 40 and one loop, that test's graph). make_db()
+    gives an empty KeyframeDB of either package. Returns (db, t_gt)."""
+    import numpy as np
+
+    from isvins_tpu_torch.geom.hostmath import (mat_to_quat_np, quat_conj_np, quat_mul_np,
+                                                quat_normalize_np, quat_to_mat_np)
+
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    t_gt = np.stack([5 * np.cos(th), 5 * np.sin(th), np.zeros(n)], axis=1)
+    q_gt = np.stack([np.cos((th + np.pi / 2) / 2), 0 * th, 0 * th,
+                     np.sin((th + np.pi / 2) / 2)], axis=1)
+    rate = 40.0 / n
+    db = make_db()
+    for k in range(n):
+        dy = 0.004 * rate * k
+        Rz = np.array([[np.cos(dy), -np.sin(dy), 0], [np.sin(dy), np.cos(dy), 0], [0, 0, 1]])
+        tv = Rz @ t_gt[k] + np.array([0.002, 0.001, 0.0]) * rate * k
+        qv = quat_normalize_np(quat_mul_np(mat_to_quat_np(Rz), q_gt[k]))
+        db.add(ts=float(k), vio_t=tv, vio_q=qv, opt_t=tv, opt_q=qv)
+
+    def rel(i, j):
+        return (quat_to_mat_np(q_gt[i]).T @ (t_gt[j] - t_gt[i]),
+                quat_normalize_np(quat_mul_np(quat_conj_np(q_gt[i]), q_gt[j])))
+
+    for k in range(n - 1):
+        db.edge_dt[k], db.edge_dq[k] = rel(k, k + 1)
+        db.edge_sqrt[k] = np.eye(6) * 30.0
+        db.edge_valid[k] = True
+    for l in range(n_loops):
+        j = n - n_loops + l
+        db.loop_idx[j] = l
+        db.loop_dt[j], db.loop_dq[j] = rel(l, j)
+        db.loop_weight[j] = 500.0
+    return db, t_gt
+
+
+def _f32(arrays):
+    import numpy as np
+
+    return tuple(a.astype(np.float32) if a.dtype == np.float64 else a for a in arrays)
+
+
+def _pg_errors(out, ref):
+    """Of a solve (t, q, cov[, cost]) against another: max |dt|, max |dq| (up
+    to the quaternion's sign), the
+    largest relative Frobenius error of a covariance block, the largest
+    covariance error beyond rtol * |ref| (for F64_BOUNDS), the relative cost
+    gap."""
+    import numpy as np
+
+    h = lambda x: np.asarray(x.detach().cpu().double() if hasattr(x, "detach") else x,
+                             np.float64)
+    t, q, c = (h(x) for x in out[:3])
+    tr, qr, cr = (h(x) for x in ref[:3])
+    # q and -q are one rotation, and quat_normalize picks w >= 0, so a
+    # rotation with w near 0 may come out with either sign: the distance of
+    # each quaternion to the nearer of +-q_ref
+    dq = np.minimum(np.abs(q - qr).max(axis=-1), np.abs(q + qr).max(axis=-1))
+    err = {"dt": float(np.abs(t - tr).max()), "dq": float(dq.max()),
+           "dcov": float((np.linalg.norm(c - cr, axis=(1, 2))
+                          / np.linalg.norm(cr, axis=(1, 2))).max()),
+           "dcov_abs": float((np.abs(c - cr) - F64_BOUNDS["cov_rtol"] * np.abs(cr)).max()),
+           "t_max": float(np.abs(tr).max())}
+    if len(out) > 3:
+        err["dcost"] = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+    return err
+
+
+def _f32_bounds(ref_t_max, base=None):
+    """The f32 bounds: 256 ulps, 5 %; or F32_MARGIN x `base`'s errors."""
+    import numpy as np
+
+    b = {"t": 256 * float(np.spacing(np.float32(ref_t_max))),
+         "q": 256 * float(np.spacing(np.float32(1.0))), "dcov": 0.05}
+    if base is not None:
+        b["t"] = max(b["t"], F32_MARGIN * base["dt"])
+        b["q"] = max(b["q"], F32_MARGIN * base["dq"])
+    return b
+
+
+def _pg_check(label, out, ref, bounds, records):
+    """Hold a solve to another within `bounds` (F64_BOUNDS or _f32_bounds);
+    print the errors beside their bounds; raise on a miss."""
+    import numpy as np
+
+    err = _pg_errors(out, ref)
+    if "cov_rtol" in bounds:
+        ok = (err["dt"] <= bounds["t"] and err["dq"] <= bounds["q"]
+              and err["dcov_abs"] <= bounds["cov_atol"] and err["dcost"] <= bounds["cost_rtol"])
+        text = (f"max|dt| {err['dt']:.3g} m (bound {bounds['t']:g}), max|dq| {err['dq']:.3g} "
+                f"(bound {bounds['q']:g}), covariance beyond rtol {bounds['cov_rtol']:g}: "
+                f"{err['dcov_abs']:.3g} (atol {bounds['cov_atol']:g}), relative cost gap "
+                f"{err['dcost']:.3g} (bound {bounds['cost_rtol']:g})")
+    else:
+        ulps = 256 * float(np.spacing(np.float32(err["t_max"])))
+        ok = err["dt"] <= bounds["t"] and err["dq"] <= bounds["q"] and err["dcov"] <= bounds["dcov"]
+        text = (f"max|dt| {err['dt']:.3g} m (bound {bounds['t']:.3g}; 256 ulps of "
+                f"{err['t_max']:.3g} m: {ulps:.3g}), max|dq| {err['dq']:.3g} (bound "
+                f"{bounds['q']:.3g}), covariance blocks {err['dcov']:.3g} relative (bound "
+                f"{bounds['dcov']:g})" + (f", relative cost gap {err['dcost']:.3g}"
+                                          if "dcost" in err else ""))
+    print(f"[pgdist] {label}: {text}")
+    records[label] = {**err, "bounds": bounds}
+    if not ok:
+        raise AssertionError(f"{label}: outside its bounds")
+    return err
+
+
+def _pg_timed(dev, label, fn, reps=3):
+    """fn() once (its result, and the peak memory of that run), then `reps`
+    runs on the host clock: to fn's return (the enqueue) and to a
+    synchronize() after it (the wall time); then one run under
+    torch.profiler (device activity only): the card's busy time and its
+    kernels and copies."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    _sync(dev)
+    mem = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    enq, wall = [], []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        _sync(dev)
+        enq.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    busy, events, _ = _device_busy(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda and not e.name().startswith(("Memcpy", "Memset")))
+    rec = {"wall_ms_median": float(np.median(wall)) * 1e3,
+           "enqueue_ms_median": float(np.median(enq)) * 1e3,
+           "device_busy_ms": busy, "kernels": kernels, "copies": events - kernels,
+           "max_memory_allocated_mb": mem}
+    print(f"[pgdist] {label}: wall {rec['wall_ms_median']:.2f} ms (median of {reps}), host "
+          f"enqueue {rec['enqueue_ms_median']:.2f} ms, card busy {busy:.2f} ms, {kernels} kernels "
+          f"and {events - kernels} copies per solve (torch.profiler), max_memory_allocated "
+          f"{mem:.1f} MiB")
+    return out, rec
+
+
+def _interface(nd, args):
+    """NB and the interface size of dd_partition on a problem's arrays."""
+    from isvins_tpu_torch.parallel.dd_solver import dd_partition
+
+    part = dd_partition(nd, len(args[0]), *(args[k] for k in (4, 5, 9, 10, 13, 14, 15, 19)))
+    return {"NB": int(part["NB"]), "interface": int(part["bnd_valid"].sum()),
+            "Ki": int(part["Ki"])}
+
+
+def phase_pgdist(dev):
+    """The pose graph across devices (ROADMAP A5), one process over a list
+    of torch devices with the card listed nd times. (a) The product
+    configuration (K = 1024): the edge-sharded dense solve on [card] and
+    dd_pose_graph_solve on [card] * 2, 4, 8, in f64 held to the port's f64 dd
+    solve on ["cpu"] * 8 at the reference tests' tolerances, and in f32 (the
+    card's precision: timed) held to it within the f32 bounds; dd against
+    dense on the card in f64 (the exactness claim). (b) The clamp
+    (K = 4096, nd = 8): dd against dense, both on the card, in f64 and in
+    f32, with peak memory (no f64 CPU solve: the dense one at D = 24,576
+    would take minutes). (c) The router: optimize_pose_graph on a
+    600-keyframe drifted circle with 16 loops (the K = 1024 bucket, nd = 8)
+    dispatched async on [card] * 8 under set_sync_debug_mode("error"), then
+    finalized; held to the dense route on the card and to the f64 router on
+    ["cpu"] * 8, and the loop closed (max position error < 0.25 m, the JAX
+    test's bound); the dense route on the card timed beside it. The path
+    launches none of K1-K7."""
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.parallel import dd_pose_graph_solve, distributed_pose_graph_solve
+    from isvins_tpu_torch.posegraph import KeyframeDB, optimize_pose_graph
+    from isvins_tpu_torch.posegraph import optimize as optimize_mod
+
+    torch.cuda.empty_cache()
+    checks, timed = {}, {}
+
+    def solves(K, nds, iters):
+        out = {"dense": lambda a: distributed_pose_graph_solve([dev], *a, iters=iters,
+                                                               with_cov=True)}
+        for nd in nds:
+            out[f"dd{nd}"] = lambda a, nd=nd: dd_pose_graph_solve([dev] * nd, *a, iters=iters,
+                                                                  with_cov=True)
+        return out
+
+    # (a) the product configuration
+    K = PGDIST_K
+    prob = posegraph_problem(K, K, K // 16)
+    p32 = _f32(prob)
+    t0 = time.perf_counter()
+    ref = dd_pose_graph_solve(["cpu"] * 8, *prob, iters=PGDIST_ITERS, with_cov=True)
+    cpu_s = time.perf_counter() - t0
+    cpu32 = dd_pose_graph_solve(["cpu"] * 8, *p32, iters=PGDIST_ITERS, with_cov=True)
+    base = _pg_errors(cpu32, ref)
+    print(f"[pgdist] K={K} E={K} loops={K // 16} iters={PGDIST_ITERS}: the f64 reference, "
+          f"dd on ['cpu'] * 8, took {cpu_s:.2f} s; the same solve in f32 on the CPU is "
+          f"{base['dt']:.3g} m / {base['dq']:.3g} from it (the f32 error of this configuration)")
+    bounds32 = _f32_bounds(base["t_max"], base)
+    outs64 = {}
+    for name, fn in solves(K, PGDIST_ND, PGDIST_ITERS).items():
+        part = _interface(int(name[2:]), prob) if name != "dense" else {}
+        outs64[name] = fn(prob)
+        _pg_check(f"K={K} {name} card f64 vs CPU f64", outs64[name], ref, F64_BOUNDS, checks)
+        if name != "dense":
+            _pg_check(f"K={K} {name} vs dense, card f64", outs64[name], outs64["dense"],
+                      F64_BOUNDS, checks)
+        out32, rec = _pg_timed(dev, f"K={K} {name} card f32 {part}", lambda: fn(p32))
+        _pg_check(f"K={K} {name} card f32 vs CPU f64", out32, ref, bounds32, checks)
+        timed[f"K{K}_{name}"] = {**rec, **part}
+    del outs64
+    torch.cuda.empty_cache()
+
+    # (b) the clamp: dd against dense, both on the card
+    K, nd = PGDIST_CLAMP_K, PGDIST_CLAMP_ND
+    prob = posegraph_problem(K, K, K // 16)
+    p32 = _f32(prob)
+    fns = solves(K, (nd,), PGDIST_ITERS)
+    dense64 = fns["dense"](prob)
+    dd64 = fns[f"dd{nd}"](prob)
+    _pg_check(f"K={K} dd{nd} vs dense, card f64", dd64, dense64, F64_BOUNDS, checks)
+    dense32, rec = _pg_timed(dev, f"K={K} dense card f32", lambda: fns["dense"](p32))
+    timed[f"K{K}_dense"] = rec
+    # no independent f32 solve at this size (the CPU's would take minutes):
+    # the dense f32 solve's pose errors are printed, and they bound dd's
+    base = _pg_check(f"K={K} dense card f32 vs dense card f64", dense32, dense64,
+                     {"t": float("inf"), "q": float("inf"), "dcov": 0.05}, checks)
+    del dense32
+    torch.cuda.empty_cache()
+    part = _interface(nd, prob)
+    dd32, rec = _pg_timed(dev, f"K={K} dd{nd} card f32 {part}", lambda: fns[f"dd{nd}"](p32))
+    timed[f"K{K}_dd{nd}"] = {**rec, **part}
+    _pg_check(f"K={K} dd{nd} card f32 vs dense card f64", dd32, dense64,
+              _f32_bounds(base["t_max"], base), checks)
+    del dense64, dd64, dd32
+    torch.cuda.empty_cache()
+
+    # (c) the router: the dd branch dispatched async on the card listed 8 times
+    n = ROUTER_KF
+    make = lambda d: drifted_circle_db(lambda: KeyframeDB(n, 8, 8, device=d), n,
+                                       ROUTER_LOOPS)
+    meshes, real = [], optimize_mod.dd_pose_graph_solve
+
+    def recording(devices, *a, **kw):
+        meshes.append(len(devices))
+        return real(devices, *a, **kw)
+
+    optimize_mod.dd_pose_graph_solve = recording
+    try:
+        cpu_db, t_gt = make("cpu")
+        t0 = time.perf_counter()
+        optimize_pose_graph(cpu_db, 0, n - 1, devices=["cpu"] * ROUTER_DEVICES)
+        cpu_s = time.perf_counter() - t0
+        route = lambda db: optimize_pose_graph(db, 0, n - 1, async_dispatch=True,
+                                               devices=[dev] * ROUTER_DEVICES)
+        dbs = [make(dev)[0] for _ in range(7)]
+        route(dbs.pop()).finalize()  # warm-up
+        card_db = dbs.pop()
+        _sync(dev)
+        ops.reset_launch_counts()  # just before the main path
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending = route(card_db)
+            t1 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pending.finalize()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()  # just after the main path
+        if meshes != [8, 8, 8] or not pending.landed:
+            raise AssertionError(f"the router's dd meshes {meshes}, landed {pending.landed}")
+        loops = [k for k in range(n) if card_db.loop_idx[k] >= 0]
+        part = _interface(8, optimize_mod._dd_inputs(card_db, 0, n - 1, n, loops, np.float32)[0])
+        # dispatch (the enqueue) and the card's work; finalize is timed above
+        _, rec = _pg_timed(dev, f"router n={n} dd{ROUTER_DEVICES} dispatch {part}",
+                           lambda: route(dbs.pop()))
+    finally:
+        optimize_mod.dd_pose_graph_solve = real
+    dense_db = make(dev)[0]
+    optimize_pose_graph(dense_db, 0, n - 1, devices=[dev])
+    # the same segment through the dense route on one card (n = 600, D = 3,600)
+    dbs = [make(dev)[0] for _ in range(5)]
+    _, rec_dense = _pg_timed(dev, f"router n={n} dense route [card] dispatch",
+                             lambda: optimize_pose_graph(dbs.pop(), 0, n - 1, async_dispatch=True,
+                                                         devices=[dev]))
+    as_out = lambda db: (db.opt_t[:n], db.opt_q[:n], db.cov[:n])
+    err_loop = float(np.linalg.norm(card_db.opt_t[:n] - t_gt, axis=1).max())
+    print(f"[pgdist] router: n={n} keyframes, {ROUTER_LOOPS} loops, K=1024 bucket, nd=8; "
+          f"async dispatch under set_sync_debug_mode('error'): no host read, returned in "
+          f"{(t1 - t0) * 1e3:.2f} ms, finalize waited {(t2 - t1) * 1e3:.2f} ms; the f64 "
+          f"router on ['cpu'] * 8 took {cpu_s:.2f} s; K1-K7 launches {counts}; max position "
+          f"error to ground truth {err_loop:.4g} m (bound 0.25)")
+    b = _f32_bounds(float(np.abs(cpu_db.opt_t[:n]).max()))
+    _pg_check("router dd card f32 vs router CPU f64", as_out(card_db), as_out(cpu_db), b, checks)
+    _pg_check("router dd card f32 vs dense route card f32", as_out(card_db), as_out(dense_db),
+              b, checks)
+    if not err_loop < 0.25:
+        raise AssertionError(f"the router did not close the loop: {err_loop} m")
+    if any(counts.values()):
+        raise AssertionError(f"the pose graph across devices launched a kernel: {counts}")
+    timed["router"] = {**rec, **part, "dispatch_host_ms": (t1 - t0) * 1e3,
+                       "finalize_wait_ms": (t2 - t1) * 1e3, "max_pos_err_m": err_loop}
+    timed["router_dense"] = rec_dense
+    torch.cuda.empty_cache()
+    return counts, {"timed": timed, "checks": checks}
+
+
 def main():
     import torch
 
@@ -2728,20 +3114,24 @@ def main():
     lap("profiler")
     sys_counts, system = phase_system(dev, smi, world, frames, render_s)
     lap("system")
+    pgd_counts, pgdist = phase_pgdist(dev)
+    lap("pgdist")
     # K5's launches are the multiseq path's (both halves), K7's its own
     # path's, the others' the posegraph path's; `launches_pixels` and
-    # `launches_system` are the pixels and system paths'
+    # `launches_system` are the pixels and system paths', `launches_pgdist`
+    # the pose graph across devices' (none: plain torch)
     counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
                       "multiseq": {**ms, **ms_est}, "pixels": pix, "system": system,
-                      "nullspace": nullspace, "phase_s": phase_s}))
+                      "pgdist": pgdist, "nullspace": nullspace, "phase_s": phase_s}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1], "launches": counts[k],
-         "launches_pixels": pix_counts[k], "launches_system": sys_counts[k], **records[k]}
+         "launches_pixels": pix_counts[k], "launches_system": sys_counts[k],
+         "launches_pgdist": pgd_counts[k], **records[k]}
         for k in KERNEL_META]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -846,6 +846,78 @@ def test_png_round_trip_feeds_the_card_tracker(tmp_path):
         np.testing.assert_array_equal(outs[0][k], outs[1][k])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_dd_solve_on_card_matches_cpu_f64(dtype):
+    """dd_pose_graph_solve on the card listed 4 times (one batched program)
+    against the same solve in f64 on ["cpu"] * 4, on scaling_bench's problem
+    at K = 64 (3 iterations, with covariance): in f64 at the reference
+    tests' tolerances, in f32 within chip_smoke's f32 bounds (256 ulps of
+    the largest coordinate, of 1.0 for quaternions; covariance 5 %)."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.parallel import dd_pose_graph_solve
+
+    prob = chip_smoke.posegraph_problem(64, 64, 4)
+    ref = dd_pose_graph_solve(["cpu"] * 4, *prob, iters=3, with_cov=True)
+    args = prob if dtype == "float64" else chip_smoke._f32(prob)
+    out = dd_pose_graph_solve([dev] * 4, *args, iters=3, with_cov=True)
+    assert all(o.device == dev and o.dtype == getattr(torch, dtype) for o in out)
+    bounds = (chip_smoke.F64_BOUNDS if dtype == "float64"
+              else chip_smoke._f32_bounds(float(np.abs(ref[0].numpy()).max())))
+    chip_smoke._pg_check(f"dd [card] * 4 {dtype} vs CPU f64", out, ref, bounds, {})
+
+
+@pytest.mark.gpu
+def test_router_dd_dispatch_reads_nothing_on_the_host():
+    """optimize_pose_graph's multi-device branch on the card listed 4 times,
+    dispatched with async_dispatch=True under
+    torch.cuda.set_sync_debug_mode("error") (any host read raises), then
+    finalized: it lands, closes the loop of the drifted circle (< 0.25 m,
+    tests/test_distributed.py's bound) and agrees with the f64 router on
+    ["cpu"] * 4 within the f32 bounds."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.posegraph import KeyframeDB, optimize_pose_graph
+
+    n = 64
+    make = lambda d: chip_smoke.drifted_circle_db(lambda: KeyframeDB(n, 8, 8, device=d), n, 4)
+    (cpu_db, t_gt), card_db = make("cpu"), make(dev)[0]
+    optimize_pose_graph(cpu_db, 0, n - 1, dist_min_poses=2, devices=["cpu"] * 4)
+    optimize_pose_graph(make(dev)[0], 0, n - 1, dist_min_poses=2, devices=[dev] * 4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = optimize_pose_graph(card_db, 0, n - 1, dist_min_poses=2, devices=[dev] * 4,
+                                      async_dispatch=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pending.finalize()
+    assert pending.landed
+    assert np.linalg.norm(card_db.opt_t[:n] - t_gt, axis=1).max() < 0.25
+    out = lambda db: (db.opt_t[:n], db.opt_q[:n], db.cov[:n])
+    chip_smoke._pg_check("router [card] * 4 vs CPU f64", out(card_db), out(cpu_db),
+                         chip_smoke._f32_bounds(float(np.abs(cpu_db.opt_t[:n]).max())), {})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["dd", "distributed"])
+def test_pose_graph_across_devices_repeats_bit_for_bit_on_card(solver):
+    """Two runs of the same f32 solve on the card listed 4 times give the
+    same bits: the shards' partial sums are taken in mesh order, with no
+    atomics."""
+    dev = _card()
+    import chip_smoke
+    from isvins_tpu_torch.parallel import dd_pose_graph_solve, distributed_pose_graph_solve
+
+    fn = dd_pose_graph_solve if solver == "dd" else distributed_pose_graph_solve
+    args = chip_smoke._f32(chip_smoke.posegraph_problem(64, 64, 4))
+    a = fn([dev] * 4, *args, iters=3, with_cov=True)
+    b = fn([dev] * 4, *args, iters=3, with_cov=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_resolve_device_without_a_card_raises():
     """`None` means the card: without one it raises, and so does every entry
     point that resolves its device from None; the CPU is used only when the
