@@ -52,7 +52,10 @@ exits non-zero:
                CPU (ROADMAP C10)
   6. posegraph — the estimator's steady frames feeding the PoseGraphBuilder
                at bench.py's e2e configuration with loops on (320x240
-               rendered room, 130 frames, 1.34 laps): keyframes, BRIEF,
+               rendered room, 130 frames, 1.34 laps; features from
+               `project` and a ground-truth init, a cut that isolates the
+               pose graph; the e2e phase runs the tracker on the same
+               frames): keyframes, BRIEF,
                retrieval through K6 until the vocabulary freezes, PnP loop
                verification, the async dense optimization with covariance;
                loop-closed keyframe ATE against ground truth; every K6
@@ -115,12 +118,32 @@ Each path's launch counts are set to 0 just before it and read just after.
                set_sync_debug_mode("error"), held to the dense route and to
                the f64 router, the loop closed; wall, enqueue, busy time,
                kernels per solve, peak memory; no K1-K7 launch
+ 13. e2e     — bench.py's end-to-end stage through isvins_tpu_torch.bench on
+               the posegraph phase's 130 rendered frames: System(
+               enable_loop=True, pipeline=True, pg_thread=True,
+               solve_async=True), every steady solve dispatch under
+               set_sync_debug_mode("error"), every K6 query replayed
+               exactly; then the same frames with solve_async=False; prints
+               bench.py's two JSON lines (the headline from the solve and
+               multiseq phases' numbers) and the sync drive's frame times;
+               held to the JAX package's run (bench_reference.py: init frame
+               within 2, keyframes within 10 %, loops >= 1 at a precision no
+               lower, both ATEs within 1.5x + 5 cm), to the sync drive
+               (poses within 1e-9, the same keyframes and loops) and to no
+               stalling frame
+ 14. retrieval — retrieval_bench.py's 500-keyframe loop sweep through
+               isvins_tpu_torch.retrieval_bench on the card (corners and BRIEF
+               on the card, tf-idf retrieval, PnP verification); held to the
+               JAX package's sweep (retrieval_reference.py: the same
+               keyframes and queries with a true revisit, recalls within
+               0.01, verified precision within 0.005, loops within 2 %,
+               median relative-pose errors within 1.5x)
 An earlier line: {"launch_floor_ms": {"graph": t, "eager": t}}.
 Second-to-last line: one JSON object with the per-kernel records of all
 seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
-multiseq path, K7 from the reduce path; launches_pixels, launches_system
-and launches_pgdist from the pixels, system and pgdist paths); last line:
-{"ok": true, "device": {...}}.
+multiseq path, K7 from the reduce path; launches_pixels, launches_system,
+launches_pgdist, launches_e2e and launches_retrieval from those paths);
+last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1080,6 +1103,7 @@ def phase_solve(dev):
     import torch
 
     from isvins_tpu_torch import ops
+    from isvins_tpu_torch.bench import median_s
     from isvins_tpu_torch.parallel.sharded import make_batch_problem
     from isvins_tpu_torch.solver import WindowDims, solve_window
 
@@ -1122,14 +1146,7 @@ def phase_solve(dev):
           f"cost={float(cost_c):.6g} rel diff={rel:.3g} max|dP|={dP:.3g} m")
     if not (rel < 1e-3 and float(cost) < cost0):
         raise AssertionError(f"kernel solve disagrees with the plain solve: {rel}")
-    times = []
-    for _ in range(30):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve_window(*args, dims, iters=10)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = float(np.median(times))
+    med = median_s(lambda: solve_window(*args, dims, iters=10), 30, dev)
     print(f"[solve] median {med * 1e3:.3f} ms over 30 solves; "
           f"vio_window_solve_frames_per_s={1.0 / med:.2f}")
     return {"vio_window_solve_frames_per_s": 1.0 / med, "solve_median_ms": med * 1e3,
@@ -1366,31 +1383,6 @@ def _dispatch_without_host_reads(est, dev):
     return rec
 
 
-def posegraph_config():
-    """bench.py:190-217, the repo's end-to-end configuration with loops on:
-    EuRoC window 18/8/1000, N = 3072, a 320x240 f = 200 camera (cut from
-    EuRoC's 752x480, as bench.py cuts it), the pose graph with a 0.3 m
-    keyframe gate, skip_recent = 25, 256 keypoints per keyframe. Its
-    tracker settings are left out: the tracker is not ported yet."""
-    from isvins_tpu_torch.config import (CameraConfig, NoiseConfig, PoseGraphConfig,
-                                         WindowConfig, euroc_config)
-    from isvins_tpu_torch.solver import WindowDims
-
-    H, W, f = 240, 320, 200.0
-    cam = CameraConfig(width=W, height=H, fx=f, fy=f, cx=W / 2, cy=H / 2,
-                       k1=0.0, k2=0.0, p1=0.0, p2=0.0)
-    cfg = euroc_config().replace(
-        camera=cam,
-        window=WindowConfig(vo_size=8, all_size=18, max_features=1000, max_imu_per_frame=64),
-        noise=NoiseConfig(acc_n=0.05, gyr_n=0.005, acc_w=1e-4, gyr_w=1e-5, pixel_sqrt_info=f),
-        solver=euroc_config().solver.__class__(excitation_threshold=0.08),
-        posegraph=PoseGraphConfig(enabled=True, keyframe_min_dist=0.3, skip_recent=25,
-                                  min_loop_matches=15, max_keyframes=256, max_kp_per_kf=256),
-        tic=(0.0, 0.0, 0.0), ric=((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0)),
-    )
-    return cfg, WindowDims(B=18, Vo=8, F=1000, N=3072)
-
-
 # what optimize_pose_graph reads and writes of the keyframe database
 _OPT_FIELDS = ("seq", "vio_t", "vio_q", "opt_t", "opt_q", "cov", "edge_dt", "edge_dq",
                "edge_sqrt", "edge_valid", "rp_q", "rp_sqrt", "rp_valid", "loop_idx",
@@ -1417,17 +1409,21 @@ def _record_dispatches(builder_mod, last):
     return real
 
 
-def phase_posegraph(dev, n_frames=130):
+def phase_posegraph(dev):
     """The estimator's steady frames feeding the pose graph, as
-    System._feed_pose_graph feeds it (isvins_tpu/system.py:320-336): every
-    new PoseGraphPacket goes to PoseGraphBuilder.push with its keyframe
-    points and the RoomRenderer image at the packet's timestamp. Features
-    come from `project` (the tracker is not ported yet); init through the
-    ground-truth hook."""
+    System._feed_pose_graph feeds it (isvins_tpu/system.py:320-336), at
+    bench.py's e2e configuration (isvins_tpu_torch.bench.e2e_config and
+    e2e_world: 130 frames, 1.34 laps): every new PoseGraphPacket goes to
+    PoseGraphBuilder.push with its keyframe points and the RoomRenderer
+    image at the packet's timestamp. A deliberate cut, so that the phase
+    isolates the pose graph: features come from `project` (no tracker),
+    init through the ground-truth hook, one thread. The `e2e` phase runs
+    the tracker and System on the same frames, which this phase renders
+    and returns."""
     import numpy as np
-    import torch
 
     from isvins_tpu_torch import ops
+    from isvins_tpu_torch.bench import e2e_config, e2e_world
     from isvins_tpu_torch.estimator.estimator import NON_LINEAR, Estimator
     from isvins_tpu_torch.frontend.camera import make_camera
     from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
@@ -1435,20 +1431,18 @@ def phase_posegraph(dev, n_frames=130):
     from isvins_tpu_torch.posegraph import builder as builder_mod
     from isvins_tpu_torch.utils import perf
     from isvins_tpu_torch.utils.evaluation import ate_rmse
-    from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world, project
+    from isvins_tpu_torch.utils.synthetic import project
 
-    cfg, dims = posegraph_config()
-    # 1.34 laps of the room: the revisit closes real loops
-    world = make_world(n_frames=n_frames, frame_hz=10.0, imu_hz=200.0, n_landmarks=300,
-                       seed=1, traj_r=3.0, traj_w=0.65)
+    cfg, dims = e2e_config()
+    world, renderer = e2e_world()
+    n_frames = len(world.frame_times)
     tic, qic = np.asarray(cfg.tic_np), mat_to_quat_np(np.asarray(cfg.ric_np))
-    renderer = RoomRenderer(world, cfg.camera, tic, qic)
     t0 = time.perf_counter()
-    images = [renderer.render(k)[0].astype(np.float32) for k in range(n_frames)]
+    frames = [renderer.render(k)[0] for k in range(n_frames)]
     print(f"[posegraph] rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
 
     def image_at(ts):  # the frame at the packet's timestamp
-        return images[int(np.argmin(np.abs(world.frame_times - ts)))]
+        return frames[int(np.argmin(np.abs(world.frame_times - ts)))].astype(np.float32)
 
     est = Estimator(cfg, dims, device=dev)
     builder = PoseGraphBuilder(cfg, camera=make_camera(cfg.camera), device=dev)
@@ -1548,25 +1542,7 @@ def phase_posegraph(dev, n_frames=130):
                              f"queries {len(queries)} (or none)")
     if not all(counts[k] > 0 for k in ops.SOLVE_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    # every K6 query of the drive again, at its own size K = idx -
-    # skip_recent, from the database's device mirror (which must equal the
-    # host rows), against the plain version: exact
-    n = db.n
-    if not torch.equal(db.ret_desc_dev[:n].cpu(), torch.from_numpy(db.ret_desc[:n].view(np.int32))) \
-            or not torch.equal(db.ret_valid_dev[:n].cpu(), torch.from_numpy(db.ret_valid[:n])):
-        raise AssertionError("the retrieval device mirror differs from the host rows")
-    sizes = []
-    for idx in queries:
-        hi = idx - cfg.posegraph.skip_recent
-        args = (db.ret_desc_dev[idx], db.ret_valid_dev[idx], db.ret_desc_dev[:hi],
-                db.ret_valid_dev[:hi], cfg.posegraph.retrieval_match_thresh)
-        out, ref = ops.retrieval_scores(*args), ops.retrieval_scores_ref(*args)
-        if not torch.equal(out, ref):
-            raise AssertionError(f"K6 at query {idx} (K={hi}): max abs err "
-                                 f"{float((out - ref).abs().max()):.3g}")
-        sizes.append(hi)
-    print(f"[posegraph] K6 replay: {len(sizes)} queries at K={min(sizes)}..{max(sizes)} equal "
-          f"the plain version exactly")
+    _replay_k6(dev, db, cfg.posegraph, "posegraph")
     # every dispatched solve was collected and landed finite poses
     if not builder.n_async_dispatches == builder.n_async_collects == builder.n_async_landed >= 1:
         raise AssertionError(f"async solves: dispatched {builder.n_async_dispatches}, collected "
@@ -1596,7 +1572,37 @@ def phase_posegraph(dev, n_frames=130):
     return counts, {"pg_keyframes": int(db.n), "pg_loops_closed": int(builder.n_loops),
                     "pg_ate_vio_m": ate_vio, "pg_ate_loop_m": ate_loop,
                     "pg_frame_median_ms": med, "pg_builder_mean_ms": pg_mean,
-                    "pg_est_median_ms": float(np.median(est_ms)), **opt_err}
+                    "pg_est_median_ms": float(np.median(est_ms)), **opt_err}, frames
+
+
+def _replay_k6(dev, db, pg, phase):
+    """Every K6 query of a drive again, at its own size K = idx -
+    skip_recent, from the database's device mirror (which must equal the
+    host rows), against the plain version: exact."""
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import ops
+
+    _sync(dev)  # the worker's stream wrote the mirror
+    n = db.n
+    if not torch.equal(db.ret_desc_dev[:n].cpu(), torch.from_numpy(db.ret_desc[:n].view(np.int32))) \
+            or not torch.equal(db.ret_valid_dev[:n].cpu(), torch.from_numpy(db.ret_valid[:n])):
+        raise AssertionError("the retrieval device mirror differs from the host rows")
+    sizes = []
+    for idx in db.match_count_queries:
+        hi = idx - pg.skip_recent
+        args = (db.ret_desc_dev[idx], db.ret_valid_dev[idx], db.ret_desc_dev[:hi],
+                db.ret_valid_dev[:hi], pg.retrieval_match_thresh)
+        out, ref = ops.retrieval_scores(*args), ops.retrieval_scores_ref(*args)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K6 at query {idx} (K={hi}): max abs err "
+                                 f"{float((out - ref).abs().max()):.3g}")
+        sizes.append(hi)
+    if not sizes:
+        raise AssertionError(f"[{phase}] no K6 query to replay")
+    print(f"[{phase}] K6 replay: {len(sizes)} queries at K={min(sizes)}..{max(sizes)} equal "
+          f"the plain version exactly")
 
 
 def _replay_last_solve(db, last):
@@ -1691,20 +1697,6 @@ def _sync(dev):
     torch.cuda.synchronize(dev)
 
 
-def _median_s(fn, reps, dev):
-    """Median host-clock seconds of fn() ending in a synchronize."""
-    import numpy as np
-
-    times = []
-    for _ in range(reps):
-        _sync(dev)
-        t0 = time.perf_counter()
-        fn()
-        _sync(dev)
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times))
-
-
 EARLY_TOL, EARLY_COST_RTOL = 2e-4, 1e-3
 
 
@@ -1775,6 +1767,7 @@ def phase_multiseq_solve(dev, solve_fps, chol_ms):
     import torch
 
     from isvins_tpu_torch import ops
+    from isvins_tpu_torch.bench import median_s
     from isvins_tpu_torch.parallel import make_batch_problem, sharded_batch_solve
     from isvins_tpu_torch.solver import WindowDims, solve_window
     from isvins_tpu_torch.utils.convert import tree_map
@@ -1854,7 +1847,7 @@ def phase_multiseq_solve(dev, solve_fps, chol_ms):
         p = make_batch_problem(nb, dims, torch.float32, device=dev)
         t, g, ps = shard(p[:4]), p[4], p[5]
         step(*t, g, ps)
-        med = _median_s(lambda: step(*t, g, ps), 10, dev)
+        med = median_s(lambda: step(*t, g, ps), 10, dev)
         out[f"batched_x{nb}_throughput"] = nb / med
         print(f"[multiseq] batched_x{nb}_throughput={nb / med:.2f} frames/s (median "
               f"{med * 1e3:.3f} ms over 10 batched solves) beside "
@@ -2044,10 +2037,27 @@ def _room(cfg, n_frames):
 
 
 def _render(cfg, n_frames, ks):
-    """Frames ks of room_world's renderer (one process's share; each frame's
-    noise is seeded by its index, so the split does not change a pixel)."""
+    """Frames ks of room_world's renderer."""
     renderer = _room(cfg, n_frames)[1]
     return [renderer.render(k)[0] for k in ks]
+
+
+def render_in_processes(render, n_frames, *args):
+    """Frames 0..n_frames-1, rendered by RENDER_PROCS spawned processes,
+    each calling render(*args, ks) on its share ks (every frame of the
+    repo's renderers is seeded by its index, so the split does not change a
+    pixel)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    shares = [range(i, n_frames, RENDER_PROCS) for i in range(RENDER_PROCS)]
+    with ProcessPoolExecutor(RENDER_PROCS, mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = list(ex.map(render, *([a] * RENDER_PROCS for a in args), shares))
+    frames = [None] * n_frames
+    for ks, imgs in zip(shares, done):
+        for k, img in zip(ks, imgs):
+            frames[k] = img
+    return frames
 
 
 def room_world(cfg, n_frames):
@@ -2057,9 +2067,6 @@ def room_world(cfg, n_frames):
     (trajectory, IMU) do not depend on n_frames (asserted here; its
     landmarks do, and RoomRenderer draws none), so the pixels phase takes
     the first PIXELS_FRAMES of the system phase's SYSTEM_FRAMES."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
 
     from isvins_tpu_torch.utils.synthetic import make_world
@@ -2069,14 +2076,7 @@ def room_world(cfg, n_frames):
     for f in ("frame_times", "P", "Q", "V", "imu_dts", "imu_accs", "imu_gyrs"):
         a = getattr(short, f)
         assert np.array_equal(a, getattr(world, f)[: len(a)]), f
-    shares = [range(i, n_frames, RENDER_PROCS) for i in range(RENDER_PROCS)]
-    with ProcessPoolExecutor(RENDER_PROCS, mp_context=multiprocessing.get_context("spawn")) as ex:
-        done = list(ex.map(_render, [cfg] * RENDER_PROCS, [n_frames] * RENDER_PROCS, shares))
-    frames = [None] * n_frames
-    for ks, imgs in zip(shares, done):
-        for k, img in zip(ks, imgs):
-            frames[k] = img
-    return world, frames
+    return world, render_in_processes(_render, n_frames, cfg, n_frames)
 
 
 def _watch_init(est, frame_times):
@@ -3075,6 +3075,268 @@ def phase_pgdist(dev):
     return counts, {"timed": timed, "checks": checks}
 
 
+# The JAX package's run of bench.py's e2e stage on the CPU (bench_reference.py:
+# `JAX_PLATFORMS=cpu python3 bench_reference.py`, 2026-10-17; render 10.9 s,
+# drive 114.0 s on one CPU host; PERF.md section 4). The e2e phase is held to
+# it: the frame whose packet the estimator initialized on, keyframes, loops and
+# their precision (30 cm rule), both ATEs.
+E2E_REFERENCE = {"e2e_init_frame": 19, "e2e_keyframes": 55, "e2e_loops_closed": 7,
+                 "e2e_loop_precision": 1.0, "e2e_ate_vio_m": 0.6221357444957835,
+                 "e2e_ate_loop_m": 0.2950747561049152, "e2e_frames_measured": 55,
+                 "solved_poses": 110}
+E2E_BUDGET_S = 300.0  # each drive's wall budget: a spent budget fails the phase
+POSE_GAP_TOL = 1e-9  # async against sync (tests/test_pipeline_mode.py:73-98)
+
+
+def phase_e2e(dev, smi, frames, solve_fps, batched):
+    """bench.py's e2e stage on the card through isvins_tpu_torch.bench:
+    System(enable_loop=True, pipeline=True, pg_thread=True,
+    solve_async=True) on the posegraph phase's 130 rendered frames, then the
+    same frames with solve_async=False. In the async drive every steady
+    solve dispatch (Estimator._dispatch_steady) runs under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any host read;
+    the mode is process-wide, so the pose-graph worker's items
+    (PoseGraphBuilder.push, where all its device work and host reads are)
+    and the guarded dispatches exclude each other through one lock. Every K6
+    query of the drive is replayed exactly. Held to the JAX package's run
+    (E2E_REFERENCE), to the synchronous drive (poses within POSE_GAP_TOL,
+    the same keyframes and loops) and to no stalling frame."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from isvins_tpu_torch import bench, ops
+    from isvins_tpu_torch.estimator.estimator import Estimator
+    from isvins_tpu_torch.posegraph import PoseGraphBuilder
+    from isvins_tpu_torch.system import System
+
+    ref = E2E_REFERENCE
+    cfg, _ = bench.e2e_config()
+    world, _ = bench.e2e_world()
+    lock, guarded, made = threading.Lock(), [], []
+    dispatch, push, init = Estimator._dispatch_steady, PoseGraphBuilder.push, System.__init__
+
+    def guarded_dispatch(self, args, device=None):
+        with lock:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = dispatch(self, args, device)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        guarded.append(1)
+        return out
+
+    def locked_push(self, *a, **k):
+        with lock:
+            return push(self, *a, **k)
+
+    def watched_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+        self._init_at = _watch_init(self.estimator, world.frame_times)
+
+    print(f"[e2e] bench.bench_e2e on the card: {len(frames)} frames "
+          f"{cfg.camera.width}x{cfg.camera.height}, max_cnt {cfg.tracker.max_cnt}, "
+          f"System(pipeline=True, pg_thread=True, solve_async=True), then solve_async=False")
+    Estimator._dispatch_steady, PoseGraphBuilder.push = guarded_dispatch, locked_push
+    System.__init__ = watched_init
+    ops.reset_launch_counts()  # just before the main path
+    try:
+        a = bench.bench_e2e(dev, solve_async=True, frames=frames, budget_s=E2E_BUDGET_S)
+        _sync(dev)
+        counts = ops.launch_counts()  # just after the main path
+    finally:
+        Estimator._dispatch_steady, PoseGraphBuilder.push = dispatch, push
+        System.__init__ = init
+    sa = made[0]
+    db, est = sa.pgbuilder.db, sa.estimator
+    _replay_k6(dev, db, cfg.posegraph, "e2e")
+    s = bench.bench_e2e(dev, solve_async=False, frames=frames, budget_s=E2E_BUDGET_S)
+    ss = s["system"]
+    head = bench.headline(solve_fps, batched)
+    print(json.dumps(head))
+    print(json.dumps(bench.final_line(head, a)))
+
+    ta, ts_ = a["trajectory"], s["trajectory"]
+    same_ts = [x[0] for x in ta] == [x[0] for x in ts_]
+    gap_p = max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(ta, ts_))
+    gap_q = max(float(np.abs(x[2] - y[2]).max()) for x, y in zip(ta, ts_))
+    n_loops, precision = _loop_precision(db, {"t": world.frame_times, "p": world.P,
+                                              "q": world.Q})
+    med = lambda name: a["phases"].get(name, {}).get("median_ms")
+    n_solves = est.steady_solves
+    rec = {
+        "e2e_init_frame": sa._init_at[0] if sa._init_at else None,
+        "e2e_loop_precision": precision, "solved_poses": len(ta), "steady_solves": n_solves,
+        "guarded_dispatches": len(guarded), "k6_queries": len(db.match_count_queries),
+        "e2e_median_ms_sync": s["e2e_median_ms"], "e2e_p90_ms_sync": s["e2e_p90_ms"],
+        "e2e_max_ms_sync": s["e2e_max_ms"], "e2e_pipeline_fps_sync": s["e2e_pipeline_fps"],
+        "e2e_keyframes_sync": s["e2e_keyframes"], "e2e_loops_closed_sync": s["e2e_loops_closed"],
+        "est_solve_dispatch_median_ms": med("est.solve_dispatch"),
+        "est_solve_collect_median_ms": med("est.solve_collect"),
+        "trk_dispatch_median_ms": med("trk.dispatch"),
+        "est_process_image_median_ms": med("est.process_image"),
+        "sync_est_process_image_median_ms":
+            s["phases"].get("est.process_image", {}).get("median_ms"),
+        "async_sync_same_timestamps": same_ts, "async_sync_max_dP_m": gap_p,
+        "async_sync_max_dQ": gap_q, "launches_e2e": counts,
+        "phases_async": a["phases"], "reference": ref,
+    }
+    print(json.dumps({"e2e": rec, "card": smi}))
+    print(f"[e2e] async: init on frame {rec['e2e_init_frame']}'s packet (JAX "
+          f"{ref['e2e_init_frame']}), {a['e2e_keyframes']} keyframes (JAX {ref['e2e_keyframes']}), "
+          f"{a['e2e_loops_closed']} loops at precision {precision} (JAX {ref['e2e_loops_closed']} at "
+          f"{ref['e2e_loop_precision']}), ATE vio {a['e2e_ate_vio_m']:.4f} m, loop "
+          f"{a['e2e_ate_loop_m']:.4f} m (JAX {ref['e2e_ate_vio_m']:.4f}, {ref['e2e_ate_loop_m']:.4f})")
+    print(f"[e2e] steady frame median / p90 / max: async {a['e2e_median_ms']:.1f} / "
+          f"{a['e2e_p90_ms']:.1f} / {a['e2e_max_ms']:.1f} ms, sync {s['e2e_median_ms']:.1f} / "
+          f"{s['e2e_p90_ms']:.1f} / {s['e2e_max_ms']:.1f} ms; est.solve_dispatch "
+          f"{rec['est_solve_dispatch_median_ms']} ms, est.solve_collect "
+          f"{rec['est_solve_collect_median_ms']} ms (medians); async against sync: max|dP| "
+          f"{gap_p:.3g} m, max|dQ| {gap_q:.3g}; {len(guarded)} dispatches under "
+          f"set_sync_debug_mode('error'); launches {counts}")
+
+    fails = []
+    if a["e2e_frames_processed"] != len(frames) or s["e2e_frames_processed"] != len(frames):
+        fails.append(f"frames processed {a['e2e_frames_processed']} / "
+                     f"{s['e2e_frames_processed']} of {len(frames)} (a spent budget)")
+    if rec["e2e_init_frame"] is None or abs(rec["e2e_init_frame"] - ref["e2e_init_frame"]) > 2:
+        fails.append(f"e2e_init_frame {rec['e2e_init_frame']} not within 2 of "
+                     f"{ref['e2e_init_frame']}")
+    if abs(a["e2e_keyframes"] - ref["e2e_keyframes"]) > 0.1 * ref["e2e_keyframes"]:
+        fails.append(f"{a['e2e_keyframes']} keyframes, not within 10 % of "
+                     f"{ref['e2e_keyframes']}")
+    if n_loops < 1 or precision < ref["e2e_loop_precision"]:
+        fails.append(f"{n_loops} loops at precision {precision} (JAX "
+                     f"{ref['e2e_loop_precision']})")
+    for k in ("e2e_ate_loop_m", "e2e_ate_vio_m"):
+        if not a[k] <= 1.5 * ref[k] + 0.05:
+            fails.append(f"{k} {a[k]} > 1.5 x JAX's {ref[k]} + 0.05 m")
+    for d, label in ((a, "async"), (s, "sync")):
+        if d["e2e_p90_ms"] > 3 * d["e2e_median_ms"] or d["e2e_max_ms"] > 8 * d["e2e_median_ms"]:
+            fails.append(f"{label} frames stall over the second half of the steady frames: "
+                         f"median {d['e2e_median_ms']}, p90 {d['e2e_p90_ms']}, max "
+                         f"{d['e2e_max_ms']}")
+    if not (same_ts and len(ta) == len(ts_) > 0 and gap_p <= POSE_GAP_TOL
+            and gap_q <= POSE_GAP_TOL):
+        fails.append(f"async and sync drives part: same timestamps {same_ts} "
+                     f"({len(ta)} against {len(ts_)} poses), max|dP| {gap_p}, max|dQ| {gap_q}")
+    if (a["e2e_keyframes"], a["e2e_loops_closed"]) != (s["e2e_keyframes"], s["e2e_loops_closed"]) \
+            or not np.array_equal(db.loop_idx[:db.n], ss.pgbuilder.db.loop_idx[:db.n]):
+        fails.append(f"keyframes / loops: async {a['e2e_keyframes']} / {a['e2e_loops_closed']}, "
+                     f"sync {s['e2e_keyframes']} / {s['e2e_loops_closed']}")
+    if len(guarded) != n_solves - 1 or n_solves < 8:
+        # every steady solve but the init frame's (solve_odometry(first=True))
+        fails.append(f"{len(guarded)} guarded dispatches for {n_solves} steady solves")
+    if est.failure_count or ss.estimator.failure_count:
+        fails.append(f"failure_count {est.failure_count} / {ss.estimator.failure_count}")
+    iters = cfg.solver.max_iterations
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=n_solves * (iters + 1), imu_rows=n_solves * (iters + 1),
+                  schur_corr=n_solves * iters, linstep=n_solves * iters,
+                  retrieval_scores=len(db.match_count_queries))
+    if counts != expect or not counts["retrieval_scores"]:
+        fails.append(f"e2e-path launches {counts} != {expect} (K6 must run)")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts, {**{k: a[k] for k in ("e2e_pipeline_fps",) + bench.E2E_FIELDS}, **rec}
+
+
+# The JAX package's retrieval sweep on the CPU (retrieval_reference.py:
+# `JAX_PLATFORMS=cpu python3 retrieval_reference.py --keyframes 250 500`,
+# 2026-10-17; build 69.8 s and evaluation 53.9 s at 500 keyframes, 35.0 s and
+# 39.8 s at 250, on one CPU host; PERF.md section 4). Its 500-keyframe fields
+# equal RETRIEVAL_r05.json's rounded ones. The retrieval phase is held to it.
+RETRIEVAL_REFERENCE = {
+    500: {"keyframes": 500, "queries_with_truth": 417, "retrieval_recall_at_4": 0.9328537170263789,
+          "retrieval_precision": 0.6845637583892618, "verified_loop_recall": 0.9904076738609112,
+          "verified_loop_precision": 0.9954441913439636, "loops_fired": 439,
+          "loop_rel_t_err_median_m": 0.015594935356193124,
+          "loop_rel_yaw_err_median_deg": 0.1537919358418094},
+    250: {"keyframes": 250, "queries_with_truth": 167, "retrieval_recall_at_4": 0.9041916167664671,
+          "retrieval_precision": 0.5266497461928934, "verified_loop_recall": 0.9700598802395209,
+          "verified_loop_precision": 0.9893617021276596, "loops_fired": 188,
+          "loop_rel_t_err_median_m": 0.01776116608211717,
+          "loop_rel_yaw_err_median_deg": 0.2692296842421058},
+}
+RETRIEVAL_KF = 500
+
+
+def _render_retrieval(n_kf, ks):
+    """Frames ks of retrieval_bench.retrieval_world(n_kf)'s renderer."""
+    from isvins_tpu_torch.retrieval_bench import retrieval_world
+
+    renderer = retrieval_world(n_kf)[1]
+    return [renderer.render(k)[0] for k in ks]
+
+
+def phase_retrieval(dev, n_kf=RETRIEVAL_KF):
+    """retrieval_bench.py's loop-retrieval sweep through the port on the card
+    (isvins_tpu_torch.retrieval_bench): n_kf keyframes about 0.3 m apart on
+    an r = 3 m circle (about 8 laps at 500), corners and BRIEF on the card,
+    the keyframe database's post-freeze tf-idf retrieval and the builder's
+    PnP verification. Frames are rendered first by RENDER_PROCS processes.
+    Held to the JAX package's sweep (RETRIEVAL_REFERENCE)."""
+    import numpy as np
+
+    from isvins_tpu_torch import ops
+    from isvins_tpu_torch.config import PoseGraphConfig
+    from isvins_tpu_torch.retrieval_bench import build_db, evaluate, summarize
+
+    ref = RETRIEVAL_REFERENCE[n_kf]
+    t0 = time.perf_counter()
+    frames = render_in_processes(_render_retrieval, n_kf, n_kf)
+    render_s = time.perf_counter() - t0
+    pg = PoseGraphConfig(skip_recent=50, min_loop_matches=15)
+    ops.reset_launch_counts()  # just before the main path
+    t0 = time.perf_counter()
+    db, gt_t, gt_yaw, _, _ = build_db(n_kf, device=dev, frames=frames)
+    t1 = time.perf_counter()
+    st = evaluate(db, gt_t, gt_yaw, pg)
+    t2 = time.perf_counter()
+    _sync(dev)
+    counts = ops.launch_counts()  # just after the main path
+    out = summarize(st, db.n)
+    rec = {**out, "match_count_queries": len(db.match_count_queries), "build_s": t1 - t0,
+           "evaluate_s": t2 - t1, "render_s": render_s,
+           "find_connection_median_ms": float(np.median(st["find_connection_ms"])),
+           "find_connection_calls": len(st["find_connection_ms"]),
+           "launches_retrieval": counts, "reference": ref}
+    print(json.dumps({"retrieval": rec}))
+    print(f"[retrieval] {n_kf} keyframes (rendered in {render_s:.1f} s): built in "
+          f"{rec['build_s']:.1f} s, evaluated in {rec['evaluate_s']:.1f} s "
+          f"({rec['find_connection_calls']} _find_connection calls, median "
+          f"{rec['find_connection_median_ms']:.2f} ms); recall@4 "
+          f"{out['retrieval_recall_at_4']:.4f} (JAX {ref['retrieval_recall_at_4']:.4f}), verified "
+          f"recall {out['verified_loop_recall']:.4f} at precision "
+          f"{out['verified_loop_precision']:.4f} (JAX {ref['verified_loop_recall']:.4f} at "
+          f"{ref['verified_loop_precision']:.4f}), {out['loops_fired']} loops (JAX "
+          f"{ref['loops_fired']}); K6 queries {rec['match_count_queries']}")
+    fails = []
+    for k in ("keyframes", "queries_with_truth"):
+        if out[k] != ref[k]:
+            fails.append(f"{k} {out[k]} != JAX's {ref[k]}")
+    for k in ("retrieval_recall_at_4", "verified_loop_recall"):
+        if out[k] < ref[k] - 0.01:
+            fails.append(f"{k} {out[k]} < JAX's {ref[k]} - 0.01")
+    if out["verified_loop_precision"] < ref["verified_loop_precision"] - 0.005:
+        fails.append(f"verified_loop_precision {out['verified_loop_precision']} < JAX's "
+                     f"{ref['verified_loop_precision']} - 0.005")
+    if abs(out["loops_fired"] - ref["loops_fired"]) > 0.02 * ref["loops_fired"]:
+        fails.append(f"loops_fired {out['loops_fired']} not within 2 % of {ref['loops_fired']}")
+    for k in ("loop_rel_t_err_median_m", "loop_rel_yaw_err_median_deg"):
+        if not out[k] <= 1.5 * ref[k]:
+            fails.append(f"{k} {out[k]} > 1.5 x JAX's {ref[k]}")
+    expect = dict.fromkeys(counts, 0)
+    expect["retrieval_scores"] = len(db.match_count_queries)
+    if counts != expect:
+        fails.append(f"retrieval-path launches {counts} != {expect}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts, rec
+
+
 def main():
     import torch
 
@@ -3094,7 +3356,7 @@ def main():
     lap("solve")
     _, sl = phase_slice(dev)
     lap("slice")
-    counts, pg = phase_posegraph(dev)
+    counts, pg, pg_frames = phase_posegraph(dev)
     lap("posegraph")
     ms_counts, ms = phase_multiseq_solve(dev, solve["vio_window_solve_frames_per_s"],
                                          records["chol_solve_batched"]["ms"])
@@ -3116,22 +3378,30 @@ def main():
     lap("system")
     pgd_counts, pgdist = phase_pgdist(dev)
     lap("pgdist")
+    e2e_counts, e2e = phase_e2e(dev, smi, pg_frames, solve["vio_window_solve_frames_per_s"],
+                                {nb: ms[f"batched_x{nb}_throughput"] for nb in (8, 16, 32)})
+    lap("e2e")
+    ret_counts, retrieval = phase_retrieval(dev)
+    lap("retrieval")
     # K5's launches are the multiseq path's (both halves), K7's its own
     # path's, the others' the posegraph path's; `launches_pixels` and
     # `launches_system` are the pixels and system paths', `launches_pgdist`
-    # the pose graph across devices' (none: plain torch)
+    # the pose graph across devices' (none: plain torch), `launches_e2e` and
+    # `launches_retrieval` bench.py's e2e stage's and the retrieval sweep's
     counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
                       "multiseq": {**ms, **ms_est}, "pixels": pix, "system": system,
-                      "pgdist": pgdist, "nullspace": nullspace, "phase_s": phase_s}))
+                      "pgdist": pgdist, "e2e": e2e, "retrieval": retrieval,
+                      "nullspace": nullspace, "phase_s": phase_s}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_META[k][0],
          "replaces": KERNEL_META[k][1], "launches": counts[k],
          "launches_pixels": pix_counts[k], "launches_system": sys_counts[k],
-         "launches_pgdist": pgd_counts[k], **records[k]}
+         "launches_pgdist": pgd_counts[k], "launches_e2e": e2e_counts[k],
+         "launches_retrieval": ret_counts[k], **records[k]}
         for k in KERNEL_META]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

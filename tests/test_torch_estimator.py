@@ -268,8 +268,9 @@ def test_port_imports_no_jax():
         "       'isvins_tpu_torch.ops.chol_batched', 'isvins_tpu_torch.ops.schur',\n"
         "       'isvins_tpu_torch.parallel.multi_seq', 'isvins_tpu_torch.parallel.sharded',\n"
         "       'isvins_tpu_torch.frontend.lk', 'isvins_tpu_torch.frontend.tracker',\n"
-        "       'isvins_tpu_torch.initial.five_point', 'isvins_tpu_torch.initial.ex_rotation'}\n"
-        "assert len(mods) >= 51 and new <= set(mods), mods\n"
+        "       'isvins_tpu_torch.initial.five_point', 'isvins_tpu_torch.initial.ex_rotation',\n"
+        "       'isvins_tpu_torch.bench', 'isvins_tpu_torch.retrieval_bench'}\n"
+        "assert len(mods) >= 53 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

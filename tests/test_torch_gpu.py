@@ -799,6 +799,43 @@ def test_system_pg_thread_matches_inline_on_card():
 
 
 @pytest.mark.gpu
+def test_e2e_async_matches_sync_on_card():
+    """bench.py's e2e configuration on the card, cut to its first 40 frames
+    (init near frame 19, about 20 steady frames): System(pipeline=True,
+    pg_thread=True) with solve_async=True against solve_async=False on the
+    same frames. The async solve runs on its own stream beside the
+    tracker's and the pose-graph worker's; it is the same solve on the same
+    inputs, so the pose timestamps are equal and the poses within 1e-9
+    (tests/test_pipeline_mode.py's bound), with the same keyframes and
+    loops."""
+    from isvins_tpu_torch import bench
+    from isvins_tpu_torch.system import System
+
+    dev = _card()
+    cfg, dims = bench.e2e_config()
+    world, renderer = bench.e2e_world()
+    frames = [renderer.render(k)[0] for k in range(40)]
+    runs = []
+    for solve_async in (True, False):
+        sys_ = System(cfg, dims, enable_loop=True, pipeline=True, pg_thread=True,
+                      solve_async=solve_async, device=dev)
+        try:
+            runs.append((bench.drive_e2e(sys_, world, frames), sys_))
+        finally:
+            sys_.close()
+    (a, sa), (b, sb) = runs
+    ta, tb = a["trajectory"], b["trajectory"]
+    assert [x[0] for x in ta] == [x[0] for x in tb] and len(ta) >= 15
+    for (_, Pa, Qa), (_, Pb, Qb) in zip(ta, tb):
+        np.testing.assert_allclose(Pa, Pb, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(Qa, Qb, rtol=0, atol=1e-9)
+    n = sa.pgbuilder.db.n
+    assert n == sb.pgbuilder.db.n > 0 and sa.pgbuilder.n_loops == sb.pgbuilder.n_loops
+    np.testing.assert_array_equal(sa.pgbuilder.db.ts[:n], sb.pgbuilder.db.ts[:n])
+    assert a["e2e_frames_processed"] == b["e2e_frames_processed"] == 40
+
+
+@pytest.mark.gpu
 def test_png_round_trip_feeds_the_card_tracker(tmp_path):
     """A rendered 752x480 frame through the port's PNG codec (the card's
     machine has no PIL): the decoded pixels equal the frame's, for the Up
@@ -957,8 +994,12 @@ def test_entry_points_default_to_the_card_and_take_cpu(tmp_path):
     from isvins_tpu_torch.posegraph import PoseGraphBuilder
     from isvins_tpu_torch.system import System
 
+    from isvins_tpu_torch.bench import bench_e2e, bench_solve
+    from isvins_tpu_torch.retrieval_bench import build_db
+
     for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__,
-               FeatureTracker.__init__, PoseGraphBuilder.__init__, System.__init__):
+               FeatureTracker.__init__, PoseGraphBuilder.__init__, System.__init__,
+               bench_solve, bench_e2e, build_db):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert inspect.signature(MultiSequenceSolver.__init__).parameters["devices"].default is None
     for cls in (FeatureManager, KeyframeDB):

@@ -267,8 +267,6 @@ def _run_builder(pkg, frames):
     import importlib
 
     cfgm = importlib.import_module(f"{pkg}.config")
-    marg = importlib.import_module(f"{pkg}.estimator.marginalization")
-    est = importlib.import_module(f"{pkg}.estimator.estimator")
     pgm = importlib.import_module(f"{pkg}.posegraph")
     cam = importlib.import_module(f"{pkg}.frontend.camera")
     cfg = cfgm.euroc_config().replace(
@@ -280,6 +278,17 @@ def _run_builder(pkg, frames):
         k1=0.0, k2=0.0, p1=0.0, p2=0.0))
     on_cpu = {"device": "cpu"} if pkg == "isvins_tpu_torch" else {}  # the JAX one has no such argument
     builder = pgm.PoseGraphBuilder(cfg, camera=camera, **on_cpu)
+    _feed_builder(pkg, builder, frames)
+    return builder
+
+
+def _feed_builder(pkg, builder, frames):
+    """Push `frames` (packet fields, exported points, image) into package
+    `pkg`'s builder."""
+    import importlib
+
+    marg = importlib.import_module(f"{pkg}.estimator.marginalization")
+    est = importlib.import_module(f"{pkg}.estimator.estimator")
     for fr in frames:
         pkt = marg.PoseGraphPacket(
             rel_dt=fr["rel_dt"], rel_dq=fr["rel_dq"], cov_rel=np.eye(6) * 1e-4,
@@ -289,7 +298,6 @@ def _run_builder(pkg, frames):
         kfp = est.KeyframePoints(ts=fr["ts"], points_w=fr["points_w"],
                                  pts_norm=fr["pts_norm"], ids=fr["ids"])
         builder.push(pkt, kfp, image=fr["image"])
-    return builder
 
 
 def test_builder_matches_reference():
@@ -321,6 +329,115 @@ def test_builder_matches_reference():
     _, _, cov = tb.covariances()
     assert np.isfinite(cov).all()
     assert tb.n_async_dispatches == tb.n_async_collects == tb.n_async_landed >= 1
+
+
+def _stitch_inputs():
+    """The inputs of tests/test_posegraph.py::test_builder_two_sequence_stitching
+    (:234-347), as numpy: two legs of packets, each with the keyframe's
+    exported points (in its sequence's vio frame) and the image rendered
+    from its world pose. Leg 1 tours the full circle in the world frame;
+    leg 2 restarts in its own vio frame (a yaw and translation offset from
+    the world) and revisits the start. Returns (leg1, leg2, t2_w)."""
+    from scipy.ndimage import gaussian_filter
+
+    from isvins_tpu_torch.geom.hostmath import (mat_to_quat_np, quat_conj_np, quat_mul_np,
+                                                quat_normalize_np, quat_to_mat_np)
+
+    H, W, f = 240, 320, 200.0
+    R_bc = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    rng = np.random.default_rng(2)
+    M = 500
+    th = rng.uniform(0, 2 * np.pi, M)
+    rad = rng.uniform(7.0, 12.0, M)
+    z = rng.uniform(-2.0, 2.5, M)
+    landmarks = np.stack([rad * np.cos(th), rad * np.sin(th), z], axis=1)
+    base = _texture(H, W, 11) * 0.06
+    stamps = []
+    for m in range(M):
+        s = gaussian_filter(np.random.default_rng(1000 + m).uniform(0, 1, size=(25, 25)), 0.8)
+        stamps.append((s - s.mean()) * 300.0)
+
+    def leg(t_vio, q_vio, ts0, offset=None):
+        frames = []
+        for k in range(len(t_vio) - 1):
+            if offset is None:
+                t_w, q_w = t_vio[k], q_vio[k]
+            else:
+                R_off, t_off = offset
+                t_w = R_off @ t_vio[k] + t_off
+                q_w = quat_normalize_np(quat_mul_np(mat_to_quat_np(R_off), q_vio[k]))
+            Rc = quat_to_mat_np(q_w) @ R_bc
+            pc = (Rc.T @ (landmarks - t_w).T).T
+            uv = pc[:, :2] / pc[:, 2:3]
+            px = uv * f + np.array([W / 2, H / 2])
+            inb = ((pc[:, 2] > 1.0) & (px[:, 0] > 14) & (px[:, 0] < W - 14) & (px[:, 1] > 14)
+                   & (px[:, 1] < H - 14))
+            img = base.copy()
+            for m in np.where(inb)[0]:
+                cx, cy = int(round(px[m, 0])), int(round(px[m, 1]))
+                img[cy - 12:cy + 13, cx - 12:cx + 13] += stamps[m]
+            img = np.clip(img + 120.0, 0, 255)
+            rows = np.where(inb)[0][:200]
+            pts_w = landmarks[rows]
+            if offset is not None:
+                pts_w = (offset[0].T @ (pts_w - offset[1]).T).T
+            dt = quat_to_mat_np(q_vio[k]).T @ (t_vio[k + 1] - t_vio[k])
+            dq = quat_normalize_np(quat_mul_np(quat_conj_np(q_vio[k]), q_vio[k + 1]))
+            frames.append(dict(rel_dt=dt, rel_dq=dq, anchor_t=t_vio[k], anchor_q=q_vio[k],
+                               ts=ts0 + float(k), points_w=pts_w, pts_norm=uv[rows], ids=rows,
+                               image=img))
+        return frames
+
+    circle = lambda ang: (np.stack([5 * np.cos(ang), 5 * np.sin(ang), 0 * ang], axis=1),
+                          np.stack([np.cos(ang / 2), 0 * ang, 0 * ang, np.sin(ang / 2)], axis=1))
+    t1, q1 = circle(np.linspace(0, 2 * np.pi, 21))
+    psi = 0.35
+    R_off = np.array([[np.cos(psi), -np.sin(psi), 0], [np.sin(psi), np.cos(psi), 0], [0, 0, 1]])
+    t_off = np.array([1.4, -0.9, 0.3])
+    t2_w, q2_w = circle(np.linspace(0.05 * np.pi, 0.55 * np.pi, 8))
+    t2_v = (R_off.T @ (t2_w - t_off).T).T
+    q2_v = np.stack([quat_normalize_np(quat_mul_np(mat_to_quat_np(R_off.T), q)) for q in q2_w])
+    return leg(t1, q1, 0.0), leg(t2_v, q2_v, 100.0, offset=(R_off, t_off)), t2_w
+
+
+def test_builder_two_sequence_stitching_matches_reference():
+    """The multi-session stitch, both builders on the same drive
+    (test_posegraph.py::test_builder_two_sequence_stitching's inputs): leg
+    1, new_sequence(), leg 2; the first inter-sequence loop sets (w_r_vio,
+    w_t_vio) and moves sequence 2 onto sequence 1's world. The same
+    keyframes, loops, sequence alignments and loop_idx, and the builders'
+    `vio_t` and trajectory() within 1e-12 m (both do the alignment's f64
+    host algebra; measured ~6e-15 m); the port alone meets the reference
+    test's own bounds (sequence 1 untouched, sequence 2 within 0.3 m of
+    the world)."""
+    leg1, leg2, t2_w = _stitch_inputs()
+    builders = []
+    for pkg in ("isvins_tpu_torch", "isvins_tpu"):
+        b = _run_builder(pkg, leg1)
+        n_seq1, seq1_vio_t = b.db.n, b.db.vio_t[:b.db.n].copy()
+        b.new_sequence()
+        _feed_builder(pkg, b, leg2)
+        builders.append((b, n_seq1, seq1_vio_t))
+    (tb, n1, seq1), (jb, jn1, _) = builders
+    n = tb.db.n
+    assert n == jb.db.n and n1 == jn1 >= 19
+    assert tb.sequence == jb.sequence == 2
+    assert int(tb.db.seq[n1]) == 2 and int(tb.db.seq[0]) == 1
+    assert tb.n_loops == jb.n_loops >= 1
+    assert tb.n_sequence_aligns == jb.n_sequence_aligns == 1 and tb.sequence_loop[2] is True
+    np.testing.assert_array_equal(tb.db.loop_idx[:n], jb.db.loop_idx[:n])
+    np.testing.assert_array_equal(tb.db.seq[:n], jb.db.seq[:n])
+    np.testing.assert_allclose(tb.w_r_vio, jb.w_r_vio, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tb.w_t_vio, jb.w_t_vio, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tb.db.vio_t[:n], jb.db.vio_t[:n], rtol=0, atol=1e-12)
+    ts, t_opt, q_opt = tb.trajectory()
+    jts, jt_opt, jq_opt = jb.trajectory()
+    np.testing.assert_array_equal(ts, jts)
+    np.testing.assert_allclose(t_opt, jt_opt, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(q_opt, jq_opt, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tb.db.vio_t[:n1], seq1, rtol=0, atol=1e-12)
+    err = np.linalg.norm(tb.db.vio_t[n1:n] - t2_w[: n - n1], axis=1)
+    assert err.max() < 0.3, err
 
 
 @pytest.mark.parametrize("with_camera_model", [False, True])
