@@ -106,7 +106,17 @@ Each path's launch counts are set to 0 just before it and read just after.
                within 1.5x + 5 cm and under half the keyframe VIO ATE, no
                stalling frame); the first PnP of a fresh process with and
                without the builder's prewarm
- 12. pgdist  — the pose graph across devices (ROADMAP A5), the card listed nd
+ 12. realism — realism_bench.py's drive (ROADMAP A8) through
+               isvins_tpu_torch.realism_bench on the system phase's world and
+               frames, in memory, with System(solve_async=True): its fields
+               beside the system phase's synchronous drive, the largest pose
+               gap between the two (printed only), the marginalization wait
+               and the worker's keyframes; held to the JAX package's run
+               (realism_reference.py: init frame within 2, keyframes within
+               10 %, loops >= 1 at a precision no lower, loop ATE within
+               1.5x + 5 cm and under half the keyframe VIO ATE, no stalling
+               frame), launches by the steady solves and K6's queries
+ 13. pgdist  — the pose graph across devices (ROADMAP A5), the card listed nd
                times in one process: scaling_bench.py's product
                configuration (K = 1024, 64 loops, 3 iterations, with
                covariance) through the edge-sharded dense solve and the
@@ -118,7 +128,16 @@ Each path's launch counts are set to 0 just before it and read just after.
                set_sync_debug_mode("error"), held to the dense route and to
                the f64 router, the loop closed; wall, enqueue, busy time,
                kernels per solve, peak memory; no K1-K7 launch
- 13. e2e     — bench.py's end-to-end stage through isvins_tpu_torch.bench on
+ 14. scaling — scaling_bench.py and __graft_entry__.py's dry run (ROADMAP A9)
+               through isvins_tpu_torch.scaling_bench and .multichip over
+               every card torch sees (one card: listed nd times): dense
+               against dd at K = 256 and 1024 in f64 (held within the
+               reference tests' tolerances), 16 product windows over nd = 1,
+               2, 4, 8 (the rows held to the nd = 1 batch within 3x the single
+               f32 solves' gap to f64; each dispatched again under
+               set_sync_debug_mode("error")), the dd solve's per-device
+               programs by graph replay, dryrun_multichip(4)
+ 15. e2e     — bench.py's end-to-end stage through isvins_tpu_torch.bench on
                the posegraph phase's 130 rendered frames: System(
                enable_loop=True, pipeline=True, pg_thread=True,
                solve_async=True), every steady solve dispatch under
@@ -131,7 +150,7 @@ Each path's launch counts are set to 0 just before it and read just after.
                lower, both ATEs within 1.5x + 5 cm), to the sync drive
                (poses within 1e-9, the same keyframes and loops) and to no
                stalling frame
- 14. retrieval — retrieval_bench.py's 500-keyframe loop sweep through
+ 16. retrieval — retrieval_bench.py's 500-keyframe loop sweep through
                isvins_tpu_torch.retrieval_bench on the card (corners and BRIEF
                on the card, tf-idf retrieval, PnP verification); held to the
                JAX package's sweep (retrieval_reference.py: the same
@@ -142,7 +161,8 @@ An earlier line: {"launch_floor_ms": {"graph": t, "eager": t}}.
 Second-to-last line: one JSON object with the per-kernel records of all
 seven kernels (launches: K1-K4 and K6 from the posegraph path, K5 from the
 multiseq path, K7 from the reduce path; launches_pixels, launches_system,
-launches_pgdist, launches_e2e and launches_retrieval from those paths);
+launches_pgdist, launches_e2e, launches_retrieval, launches_realism and
+launches_scaling from those paths);
 last line: {"ok": true, "device": {...}}.
 """
 
@@ -156,6 +176,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+
+from isvins_tpu_torch.realism_bench import realism_config as system_config  # noqa: E402
+from isvins_tpu_torch.scaling_bench import posegraph_problem  # noqa: E402,F401
+from isvins_tpu_torch.utils.timing import graph_ms  # noqa: E402
 
 KERNEL_META = {
     "proj_rows": ("isvins_tpu_torch/csrc/proj_rows.cu", "isvins_tpu/ops/proj_pallas.py:214"),
@@ -248,36 +272,6 @@ def cuda_ms(fn, reps=100, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps=100, replays=5):
-    """Device time of fn(): `reps` calls captured into one CUDA graph,
-    replayed between two events; the median replay over `reps`. The host
-    enqueues nothing during a replay, so this is the device's time per call,
-    launch gaps inside the graph included. Raises if fn() cannot be captured
-    (a host read of device memory, a synchronize)."""
-    import numpy as np
-    import torch
-
-    for _ in range(3):  # warm up: lazy initialization cannot be captured
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
 
 
 def graph_or_eager_ms(fn, reps, what):
@@ -1996,87 +1990,36 @@ PIXELS_CARD_CPU_FRAMES = 10
 
 
 def pixels_config(fused_ransac=None):
-    """realism_bench.py:47-74, the reference's full-resolution
-    configuration: EuRoC cam0 at 752x480 with radtan distortion, max_cnt
-    150, min_dist 25, 4 LK levels of 21x21, CLAHE; window 18/8/1000, N =
-    3072; its noise and excitation threshold; no ground-truth hook,
-    estimate_extrinsic 0; the pose graph off."""
-    from isvins_tpu_torch.config import (CameraConfig, NoiseConfig, PoseGraphConfig,
-                                         TrackerConfig, WindowConfig, euroc_config)
-    from isvins_tpu_torch.solver import WindowDims
+    """realism_bench.py:46-64, the reference's full-resolution configuration
+    (isvins_tpu_torch.realism_bench.realism_config: EuRoC cam0 at 752x480
+    with radtan distortion, max_cnt 150, min_dist 25, 4 LK levels of 21x21,
+    CLAHE; window 18/8/1000, N = 3072; its noise and excitation threshold;
+    no ground-truth hook, estimate_extrinsic 0) with the pose graph off."""
+    from isvins_tpu_torch.config import PoseGraphConfig
 
-    R_bc = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
-    cfg = euroc_config().replace(
-        camera=CameraConfig(),
-        tracker=TrackerConfig(max_cnt=150, min_dist=25, freq=100, lk_levels=4, lk_win=21,
-                              equalize=True, border=4, fused_ransac=fused_ransac),
-        window=WindowConfig(vo_size=8, all_size=18, max_features=1000, max_imu_per_frame=64),
-        noise=NoiseConfig(acc_n=0.02, gyr_n=0.002, acc_w=1e-4, gyr_w=1e-5, pixel_sqrt_info=460.0),
-        solver=euroc_config().solver.__class__(excitation_threshold=0.08),
-        posegraph=PoseGraphConfig(enabled=False), tic=(0.0, 0.0, 0.0), ric=R_bc,
-        estimate_extrinsic=0)
-    return cfg, WindowDims(B=18, Vo=8, F=1000, N=3072)
+    cfg, dims = system_config(fused_ransac)
+    return cfg.replace(posegraph=PoseGraphConfig(enabled=False)), dims
 
 
-ROOM_KW = dict(frame_hz=20.0, imu_hz=200.0, n_landmarks=10, seed=7, traj_r=3.0, traj_w=0.9,
-               noise_acc=0.02, noise_gyr=0.002, ba=(0.02, -0.015, 0.01), bg=(0.002, -0.003, 0.004))
-RENDER_PROCS = 4  # processes rendering the frames (the card's host has 8 cores)
-
-
-def _room(cfg, n_frames):
-    import numpy as np
-
-    from isvins_tpu_torch.frontend import make_camera
-    from isvins_tpu_torch.geom.hostmath import mat_to_quat_np
-    from isvins_tpu_torch.utils.synthetic import RoomRenderer, make_world
-
-    world = make_world(n_frames=n_frames, **ROOM_KW)
-    return world, RoomRenderer(world, cfg.camera, np.zeros(3),
-                               mat_to_quat_np(np.asarray(cfg.ric_np)), seed=11,
-                               camera_model=make_camera(cfg.camera), tex_res=512)
-
-
-def _render(cfg, n_frames, ks):
-    """Frames ks of room_world's renderer."""
-    renderer = _room(cfg, n_frames)[1]
-    return [renderer.render(k)[0] for k in ks]
-
-
-def render_in_processes(render, n_frames, *args):
-    """Frames 0..n_frames-1, rendered by RENDER_PROCS spawned processes,
-    each calling render(*args, ks) on its share ks (every frame of the
-    repo's renderers is seeded by its index, so the split does not change a
-    pixel)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    shares = [range(i, n_frames, RENDER_PROCS) for i in range(RENDER_PROCS)]
-    with ProcessPoolExecutor(RENDER_PROCS, mp_context=multiprocessing.get_context("spawn")) as ex:
-        done = list(ex.map(render, *([a] * RENDER_PROCS for a in args), shares))
-    frames = [None] * n_frames
-    for ks, imgs in zip(shares, done):
-        for k, img in zip(ks, imgs):
-            frames[k] = img
-    return frames
-
-
-def room_world(cfg, n_frames):
-    """realism_bench.py:67-74's world and RoomRenderer (seed 7 world, seed 11
-    textures at tex_res 512, the camera's radtan model), frames rendered
-    before the drives by RENDER_PROCS processes. make_world's first frames
+def room_world(n_frames):
+    """realism_bench.py:66-74's world and RoomRenderer (realism_bench.
+    realism_world: seed 7 world, seed 11 textures at tex_res 512, the
+    camera's radtan model), frames rendered in memory before the drives by
+    realism_bench.RENDER_PROCS processes. make_world's first frames
     (trajectory, IMU) do not depend on n_frames (asserted here; its
     landmarks do, and RoomRenderer draws none), so the pixels phase takes
     the first PIXELS_FRAMES of the system phase's SYSTEM_FRAMES."""
     import numpy as np
 
+    from isvins_tpu_torch.realism_bench import REALISM_WORLD, realism_world, render_frames
     from isvins_tpu_torch.utils.synthetic import make_world
 
-    world = _room(cfg, n_frames)[0]
-    short = make_world(n_frames=PIXELS_FRAMES, **ROOM_KW)
+    world = realism_world(n_frames)[0]
+    short = make_world(n_frames=PIXELS_FRAMES, **REALISM_WORLD)
     for f in ("frame_times", "P", "Q", "V", "imu_dts", "imu_accs", "imu_gyrs"):
         a = getattr(short, f)
         assert np.array_equal(a, getattr(world, f)[: len(a)]), f
-    return world, render_in_processes(_render, n_frames, cfg, n_frames)
+    return world, render_frames(n_frames)
 
 
 def _watch_init(est, frame_times):
@@ -2354,18 +2297,6 @@ SYSTEM_FRAMES = 200
 SYSTEM_PROFILED = 10  # the drive's last frames, traced by torch.profiler
 
 
-def system_config():
-    """realism_bench.py:47-64: pixels_config with the pose graph on
-    (keyframe_min_dist 0.3, skip_recent 25, min_loop_matches 15,
-    max_keyframes 512, max_kp_per_kf 256)."""
-    from isvins_tpu_torch.config import PoseGraphConfig
-
-    cfg, dims = pixels_config()
-    return cfg.replace(posegraph=PoseGraphConfig(
-        enabled=True, keyframe_min_dist=0.3, skip_recent=25, min_loop_matches=15,
-        max_keyframes=512, max_kp_per_kf=256)), dims
-
-
 _FIRST_PNP = r"""
 import json, sys, time
 import numpy as np, torch
@@ -2464,7 +2395,8 @@ def phase_system(dev, smi, world, frames, render_s):
     tracker's dispatch and collect; the last SYSTEM_PROFILED frames run
     under torch.profiler (the card's busy share) and are left out of the
     timed statistics. Held to the JAX package's run of the same drive
-    (SYSTEM_REFERENCE)."""
+    (SYSTEM_REFERENCE). Returns the launch counts, the record and the VIO
+    poses as (frame index, P, Q)."""
     import shutil
 
     import numpy as np
@@ -2699,6 +2631,145 @@ def phase_system(dev, smi, world, frames, render_s):
                      f"{len(db.match_count_queries)}")
     if fails:
         raise AssertionError("; ".join(fails))
+    by_frame = [(int(np.argmin(np.abs(image_ts - t))), P, Q) for t, P, Q in traj]
+    return counts, rec, by_frame
+
+
+# The JAX package's run of realism_bench.py's configuration with the async
+# solve on the CPU (realism_reference.py: `JAX_PLATFORMS=cpu python3
+# realism_reference.py`, 2026-10-17; render 130.5 s, drive 188.7 s on one
+# CPU host; PERF.md section 4). The realism phase is held to it.
+REALISM_REFERENCE = {
+    "init_frame": 18, "solved_poses": 181, "keyframes": 68, "loops_closed": 18,
+    "loop_precision_vs_gt": 0.9444444444444444, "loop_rel_t_err_median_m": 0.06225088344224547,
+    "ate_se3_m_vio": 1.5978225942592268, "ate_se3_m_kf_vio": 1.2007749887009533,
+    "ate_se3_m_loop_opt": 0.34839810008255795, "first_solved_frame": 19, "steady_frames": 180}
+
+
+def phase_realism(dev, smi, world, frames, system_rec, system_traj):
+    """realism_bench.py's drive on the card through
+    isvins_tpu_torch.realism_bench.drive_realism: the system phase's world
+    and rendered frames (in memory, no PNG) through System(enable_loop=True,
+    pipeline=True, pg_thread=True, solve_async=True), as a user runs it (no
+    sync-debug guard). Prints realism_bench.py's fields beside the system
+    phase's synchronous drive of the same configuration, the largest pose
+    gap between the two drives over the frames both solved (printed only:
+    the system phase's frames went through 8-bit PNGs), the wait for the
+    marginalization and the frames during which the pose-graph worker added
+    a keyframe against the others. Held to the JAX package's run
+    (REALISM_REFERENCE): init frame within 2, keyframes within 10 %, loops
+    >= 1 at a precision no lower, loop-optimized ATE within 1.5x + 5 cm and
+    under half the keyframe VIO ATE, no stalling frame over the second half
+    of the steady frames; launches K1-K4 by the steady solves and K6 by the
+    match-count queries, each K6 query replayed exactly."""
+    import numpy as np
+
+    from isvins_tpu_torch import ops, realism_bench
+    from isvins_tpu_torch.system import System
+
+    ref = REALISM_REFERENCE
+    cfg, dims = realism_bench.realism_config()
+    ops.reset_launch_counts()  # just before the main path
+    sys_ = System(cfg, dims, enable_loop=True, pipeline=True, pg_thread=True, solve_async=True,
+                  device=dev)
+    init_at = _watch_init(sys_.estimator, world.frame_times)
+    t0 = time.perf_counter()
+    try:
+        out = realism_bench.drive_realism(sys_, world, frames)
+        _sync(dev)
+        counts = ops.launch_counts()  # just after the main path
+    finally:
+        sys_.close()
+    drive_s = time.perf_counter() - t0
+    est, db = sys_.estimator, sys_.pgbuilder.db
+    _replay_k6(dev, db, cfg.posegraph, "realism")
+    fields = {k: out[k] for k in realism_bench.FIELDS}
+    steady = np.array(out["frame_ms"])
+    tail = steady[len(steady) // 2:]
+    kf = [m for m, w in zip(out["frame_ms"], out["worker_kf"]) if w]
+    other = [m for m, w in zip(out["frame_ms"], out["worker_kf"]) if not w]
+    by_frame = {int(np.argmin(np.abs(world.frame_times - t))): (P, Q)
+                for t, P, Q in out["trajectory"]}
+    common = [(by_frame[k], (P, Q)) for k, P, Q in system_traj if k in by_frame]
+    gap_p = max(float(np.abs(a[0] - b[0]).max()) for a, b in common)
+    gap_q = max(float(np.abs(a[1] - b[1]).max()) for a, b in common)
+    ph = lambda name, stat="median_ms": out["phases"].get(name, {}).get(stat)
+    rec = {
+        **fields, "init_frame": init_at[0] if init_at else None, "drive_s": drive_s,
+        "steady_frames": len(steady), "tail_ms_median": float(np.median(tail)),
+        "tail_ms_p90": float(np.percentile(tail, 90)), "tail_ms_max": float(tail.max()),
+        "frame_ms_median_worker_kf": float(np.median(kf)) if kf else None,
+        "frame_ms_median_no_kf": float(np.median(other)) if other else None,
+        "frames_worker_kf": len(kf),
+        "est_marg_collect_median_ms": ph("est.marg_collect"),
+        "est_marg_collect_max_ms": ph("est.marg_collect", "max_ms"),
+        "est_solve_dispatch_median_ms": ph("est.solve_dispatch"),
+        "est_solve_collect_median_ms": ph("est.solve_collect"),
+        "trk_dispatch_median_ms": ph("trk.dispatch"),
+        "pg_kf_device_step_median_ms": ph("pg.kf_device_step"),
+        "pg_opt_dispatch_median_ms": ph("pg.opt_dispatch"),
+        "steady_solves": est.steady_solves, "k6_queries": len(db.match_count_queries),
+        "vs_system_frames_compared": len(common), "vs_system_max_dP_m": gap_p,
+        "vs_system_max_dQ": gap_q, "launches_realism": counts,
+        "failure_count": int(est.failure_count), "phases": out["phases"], "reference": ref,
+    }
+    sync = {k: system_rec[k] for k in ("pipeline_ms_per_frame_median", "pipeline_ms_per_frame_p90",
+                                       "pipeline_ms_per_frame_max", "pipeline_fps",
+                                       "tracker_ms_per_frame_median", "tail_ms_median",
+                                       "tail_ms_p90", "tail_ms_max", "keyframes", "loops_closed",
+                                       "ate_se3_m_loop_opt")}
+    print(json.dumps(fields))
+    print(json.dumps({"realism": rec, "system_sync": sync, "card": smi}))
+    f4 = lambda x: "None" if x is None else f"{x:.4f}"
+    print(f"[realism] async drive of {len(frames)} frames in {drive_s:.1f} s: init on frame "
+          f"{rec['init_frame']}'s packet (JAX {ref['init_frame']}), {out['solved_poses']} poses, "
+          f"{out['keyframes']} keyframes (JAX {ref['keyframes']}), {out['loops_closed']} loops at "
+          f"precision {out['loop_precision_vs_gt']} (JAX {ref['loops_closed']} at "
+          f"{ref['loop_precision_vs_gt']}); ATE vio {f4(out['ate_se3_m_vio'])} m, keyframe vio "
+          f"{f4(out['ate_se3_m_kf_vio'])}, loop-optimized {f4(out['ate_se3_m_loop_opt'])} (JAX "
+          f"{ref['ate_se3_m_vio']:.4f}, {ref['ate_se3_m_kf_vio']:.4f}, "
+          f"{ref['ate_se3_m_loop_opt']:.4f})")
+    print(f"[realism] steady frame median / p90: async {out['pipeline_ms_per_frame_median']:.1f} / "
+          f"{out['pipeline_ms_per_frame_p90']:.1f} ms (tracker "
+          f"{out['tracker_ms_per_frame_median']:.1f}), the system phase's sync drive "
+          f"{sync['pipeline_ms_per_frame_median']:.1f} / {sync['pipeline_ms_per_frame_p90']:.1f} ms "
+          f"(tracker {sync['tracker_ms_per_frame_median']:.1f}); frames with a worker keyframe "
+          f"{rec['frame_ms_median_worker_kf']} ms ({len(kf)}) against {rec['frame_ms_median_no_kf']}"
+          f" ms; marginalization wait median {rec['est_marg_collect_median_ms']} ms, max "
+          f"{rec['est_marg_collect_max_ms']} ms; against the system phase over {len(common)} "
+          f"frames: max|dP| {gap_p:.3g} m, max|dQ| {gap_q:.3g}; launches {counts}")
+
+    fails = []
+    if rec["init_frame"] is None or abs(rec["init_frame"] - ref["init_frame"]) > 2:
+        fails.append(f"init frame {rec['init_frame']} not within 2 of {ref['init_frame']}")
+    if abs(out["keyframes"] - ref["keyframes"]) > 0.1 * ref["keyframes"]:
+        fails.append(f"{out['keyframes']} keyframes, not within 10 % of {ref['keyframes']}")
+    if out["loops_closed"] < 1 or not out["loop_precision_vs_gt"] >= ref["loop_precision_vs_gt"]:
+        fails.append(f"{out['loops_closed']} loops at precision {out['loop_precision_vs_gt']} "
+                     f"(JAX {ref['loop_precision_vs_gt']})")
+    loop_ate, kf_ate = out["ate_se3_m_loop_opt"], out["ate_se3_m_kf_vio"]
+    if loop_ate is None or not loop_ate <= 1.5 * ref["ate_se3_m_loop_opt"] + 0.05:
+        fails.append(f"ate_se3_m_loop_opt {loop_ate} > 1.5 x JAX's + 0.05 m")
+    if loop_ate is None or kf_ate is None or not loop_ate <= 0.5 * kf_ate:
+        fails.append(f"ate_se3_m_loop_opt {out['ate_se3_m_loop_opt']} > half the keyframe VIO "
+                     f"ATE {out['ate_se3_m_kf_vio']}")
+    if len(tail) < 20 or rec["tail_ms_p90"] > 3 * rec["tail_ms_median"] \
+            or rec["tail_ms_max"] > 8 * rec["tail_ms_median"]:
+        fails.append(f"frames stall over the second half of the steady frames: median "
+                     f"{rec['tail_ms_median']}, p90 {rec['tail_ms_p90']}, max {rec['tail_ms_max']}")
+    if rec["failure_count"]:
+        fails.append(f"failure_count {rec['failure_count']}")
+    iters = cfg.solver.max_iterations
+    n_solves = est.steady_solves
+    expect = dict.fromkeys(counts, 0)
+    expect.update(proj_rows=n_solves * (iters + 1), imu_rows=n_solves * (iters + 1),
+                  schur_corr=n_solves * iters, linstep=n_solves * iters,
+                  retrieval_scores=len(db.match_count_queries))
+    if counts != expect or not counts["retrieval_scores"] or n_solves < len(frames) // 2:
+        fails.append(f"realism-path launches {counts} != {expect} over {n_solves} steady solves "
+                     "(K6 must run)")
+    if fails:
+        raise AssertionError("; ".join(fails))
     return counts, rec
 
 
@@ -2723,34 +2794,6 @@ F64_BOUNDS = {"t": 1e-10, "q": 1e-10, "cov_rtol": 1e-6, "cov_atol": 2e-8, "cost_
 # thousands of poses carry cond(H) times f32 rounding, which the 256 ulps
 # (sized for a converged segment of tens of poses) do not cover
 F32_MARGIN = 4.0
-
-
-def posegraph_problem(K, E, n_loops, seed=0):
-    """scaling_bench._posegraph_problem (scaling_bench.py:73-97) in numpy,
-    f64, the same draws in the same order: a random-walk chain of K poses
-    (pose 0 fixed), E chain edges k -> k + 1 (the last ones clamped to
-    K - 2 -> K - 1) with sqrt-information 20 I, a roll-pitch edge on every
-    pose (5 I), max(16, n_loops) loops of weight 100 from the first half to
-    the second. The 20 arrays of distributed_pose_graph_solve."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    ident = lambda n: np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))
-    t = np.cumsum(rng.normal(size=(K, 3)) * 0.05, axis=0)
-    e_i = np.minimum(np.arange(E), K - 2).astype(np.int32)
-    e_dt = rng.normal(size=(E, 3)) * 0.05
-    L = max(16, n_loops)
-    loop_i = rng.integers(0, K // 2, L).astype(np.int32)
-    loop_j = rng.integers(K // 2, K - 1, L).astype(np.int32)
-    loop_dt = rng.normal(size=(L, 3)) * 0.05
-    fixed = np.zeros(K, bool)
-    fixed[0] = True
-    return (t, ident(K), np.ones(K, bool), fixed,
-            e_i, e_i + 1, e_dt, ident(E), np.tile(np.eye(6)[None] * 20.0, (E, 1, 1)),
-            np.ones(E, bool),
-            np.arange(K, dtype=np.int32), ident(K), np.tile(np.eye(2)[None] * 5.0, (K, 1, 1)),
-            np.ones(K, bool),
-            loop_i, loop_j, loop_dt, ident(L), np.ones(L) * 100.0, np.ones(L, bool))
 
 
 def drifted_circle_db(make_db, n, n_loops):
@@ -3075,6 +3118,128 @@ def phase_pgdist(dev):
     return counts, {"timed": timed, "checks": checks}
 
 
+SCALING_DRYRUN_N = 4  # __graft_entry__.dryrun_multichip's mesh, as on a four-card host
+
+
+def _window_gaps(st, cost, ref_st, ref_cost, scale_cost):
+    """Of batched window rows against others: the largest gap over every
+    leaf and the cost, the largest relative cost gap (over scale_cost), and
+    the median over the sequences of each one's largest |dP|."""
+    NB = cost.shape[0]
+    largest = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip((*st, cost), (*ref_st, ref_cost)))
+    rel = float(((cost.double() - ref_cost.double()).abs() / scale_cost.double()).max())
+    dP = (st.P.double() - ref_st.P.double()).abs().reshape(NB, -1).amax(dim=1)
+    return largest, rel, float(dP.median())
+
+
+def phase_scaling(dev, smi):
+    """scaling_bench.py and __graft_entry__.py's dry run through the port
+    (isvins_tpu_torch.scaling_bench.run, isvins_tpu_torch.multichip), over
+    every card torch sees (one card: listed nd times): the dense against the
+    dd pose-graph sweep at K = 256 and 1024 (f64, with covariance), 16
+    product windows over nd = 1, 2, 4, 8, the dd solve's per-device programs
+    timed by graph replay at K = 256 and 1024, and
+    dryrun_multichip(SCALING_DRYRUN_N). Held: f64 dd against f64 dense at
+    the reference tests' tolerances; the window rows of every nd against
+    the nd = 1 batch within the multiseq phase's f32 bar (3x the gap of the
+    16 windows solved one by one to the f64 solve), in cost and in
+    position, their gap to the f64 solve printed; each nd's batched solve
+    dispatched again under set_sync_debug_mode("error") with the same bits;
+    the dry run's assertions. Launches: K1, K2 and K5 (the batched windows),
+    none of K3, K4, K6, K7."""
+    import torch
+
+    from isvins_tpu_torch import multichip, ops, scaling_bench
+    from isvins_tpu_torch.parallel import cycle_mesh, make_batch_problem, sharded_batch_solve
+    from isvins_tpu_torch.solver import solve_window
+    from isvins_tpu_torch.utils.convert import tree_map
+
+    checks, sols, windows = {}, {}, {}
+    ops.reset_launch_counts()  # just before the main path
+    t0 = time.perf_counter()
+    out = scaling_bench.run(dd_solutions=sols, window_results=windows)
+    t1 = time.perf_counter()
+    dry = multichip.dryrun_multichip(SCALING_DRYRUN_N)
+    _sync(dev)
+    counts = ops.launch_counts()  # just after the main path
+    t2 = time.perf_counter()
+    print(json.dumps(out))
+    for K, by_nd in sols.items():
+        for nd in scaling_bench.DD_NDS:
+            _pg_check(f"scaling K={K} dd{nd} vs dense, card f64", by_nd[nd], by_nd[1],
+                      F64_BOUNDS, checks)
+
+    # the window rows of every nd against the nd = 1 batch, within the
+    # multiseq phase's f32 bar: 3x the gap of the 16 windows solved one by
+    # one (solve_window, K3 and K4 inside) to the f64 solve of the same
+    # windows, in cost and in position (a batch of 2 and a batch of 16 round
+    # their batched products otherwise, and five f32 LM iterations on the
+    # bench problem carry that as far as another f32 path does)
+    dims, nb, iters = scaling_bench.PRODUCT_DIMS, scaling_bench.WINDOW_NB, scaling_bench.WINDOW_ITERS
+    prob = make_batch_problem(nb, dims, torch.float32, device=dev)
+    f64 = lambda t: tree_map(lambda a: a.double() if a.is_floating_point() else a, t)
+    st64, c64 = sharded_batch_solve([dev], dims, iters=iters)[0](*f64(prob[:4]), prob[4].double(),
+                                                                   prob[5].double())
+    row = lambda k: [tree_map(lambda a: a[k].contiguous(), t) for t in prob[:4]]
+    solo = [solve_window(*row(k), prob[4], prob[5], dims, iters=iters) for k in range(nb)]
+    solo_st = type(st64)(*(torch.stack(leaf) for leaf in zip(*(st for st, _ in solo))))
+    _, own_rel, own_mid = _window_gaps(solo_st, torch.stack([c for _, c in solo]), st64, c64, c64)
+    st1, c1 = windows[1]
+    wrec, bad = {"single_f32_rel_cost_gap_vs_f64": own_rel,
+                 "single_f32_median_dP_vs_f64_m": own_mid}, []
+    for nd, (st, cost) in windows.items():
+        mesh = cycle_mesh(nd)
+        step, shard = sharded_batch_solve(mesh, dims, iters=iters)
+        shards = shard(prob[:4])
+        trees = shards if nd == 1 else tuple(zip(*shards))
+        _sync(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = step(*trees, prob[4], prob[5])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rerun = _window_gaps(*again, st, cost, c64)[0]
+        largest, rel, mid = _window_gaps(st, cost, st1, c1, c64)
+        _, rel64, mid64 = _window_gaps(st, cost, st64, c64, c64)
+        wrec[str(nd)] = {"max_abs_gap_vs_nd1": largest, "rel_cost_gap_vs_nd1": rel,
+                         "median_dP_vs_nd1_m": mid, "rel_cost_gap_vs_f64": rel64,
+                         "median_dP_vs_f64_m": mid64, "guarded_rerun_gap": rerun,
+                         "distinct_devices": len(set(mesh))}
+        print(f"[scaling] window rows nd={nd} ({len(set(mesh))} distinct) against nd=1: "
+              + ("equal bit for bit" if largest == 0.0 else
+                 f"largest gap {largest:.3g}, rel cost {rel:.3g}, median max|dP| {mid:.3g} m")
+              + f" (bar: 3x the single f32 solves' gap to f64, {own_rel:.3g} and {own_mid:.3g} m);"
+              f" against f64: rel cost {rel64:.3g}, median max|dP| {mid64:.3g} m; dispatched "
+              f"again under set_sync_debug_mode('error'): gap {rerun:.3g}")
+        if not (rel <= 3 * own_rel + 1e-6 and mid <= 3 * own_mid + 1e-6 and rerun == 0.0):
+            bad.append(nd)
+    n_cards = torch.cuda.device_count()
+    rec = {"scaling": out, "checks": checks, "window_rows": wrec, "cards": n_cards,
+           "dryrun": {"mesh": dry["mesh"], "distinct_devices": dry["distinct_devices"],
+                      "n_solved": dry["n_solved"],
+                      "sequence_costs": [s["last_cost"] for s in dry["sequences"]]},
+           "sweep_s": t1 - t0, "dryrun_s": t2 - t1, "launches_scaling": counts}
+    print(json.dumps({"scaling_checks": {k: v for k, v in rec.items() if k != "scaling"},
+                      "card": smi}))
+    print(f"[scaling] {n_cards} card(s); distinct devices per dd row: "
+          + ", ".join(f"K={K}: " + "/".join(str(r["distinct_devices"]) for r in
+                                            out[f"posegraph_dd_K{K}"]["measured_virtual_mesh"]
+                                            .values()) for K in (256, 1024))
+          + f"; sweep {t1 - t0:.1f} s, dryrun_multichip({SCALING_DRYRUN_N}) on {dry['mesh']} "
+          f"{t2 - t1:.1f} s ({dry['n_solved']} sequences solved); launches {counts}")
+    fails = []
+    if bad:
+        fails.append(f"window rows at nd {bad} further from the nd = 1 rows than 3x the single "
+                     "f32 solves' gap to f64, or a guarded rerun differs")
+    on = ("proj_rows", "imu_rows", "chol_solve_batched")
+    if any(counts[k] <= 0 for k in on) or any(counts[k] for k in counts if k not in on):
+        fails.append(f"scaling-path launches {counts}: K1, K2 and K5 must run, no other")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return counts, rec
+
+
 # The JAX package's run of bench.py's e2e stage on the CPU (bench_reference.py:
 # `JAX_PLATFORMS=cpu python3 bench_reference.py`, 2026-10-17; render 10.9 s,
 # drive 114.0 s on one CPU host; PERF.md section 4). The e2e phase is held to
@@ -3282,11 +3447,13 @@ def phase_retrieval(dev, n_kf=RETRIEVAL_KF):
 
     from isvins_tpu_torch import ops
     from isvins_tpu_torch.config import PoseGraphConfig
+    from isvins_tpu_torch.realism_bench import RENDER_PROCS
     from isvins_tpu_torch.retrieval_bench import build_db, evaluate, summarize
+    from isvins_tpu_torch.utils.synthetic import render_in_processes
 
     ref = RETRIEVAL_REFERENCE[n_kf]
     t0 = time.perf_counter()
-    frames = render_in_processes(_render_retrieval, n_kf, n_kf)
+    frames = render_in_processes(_render_retrieval, n_kf, n_kf, procs=RENDER_PROCS)
     render_s = time.perf_counter() - t0
     pg = PoseGraphConfig(skip_recent=50, min_loop_matches=15)
     ops.reset_launch_counts()  # just before the main path
@@ -3364,7 +3531,7 @@ def main():
     lap("multiseq")
     red_counts = phase_reduce(dev)
     lap("reduce")
-    world, frames = room_world(system_config()[0], SYSTEM_FRAMES)
+    world, frames = room_world(SYSTEM_FRAMES)
     lap("render")
     render_s = phase_s["render"]
     print(f"[render] {SYSTEM_FRAMES} frames at 752x480 in {render_s:.1f} s")
@@ -3374,10 +3541,15 @@ def main():
     phase_profiler(dev, records)
     pix.update(tracker_launches(dev, trk))  # the profiler's count, after its phase
     lap("profiler")
-    sys_counts, system = phase_system(dev, smi, world, frames, render_s)
+    sys_counts, system, sys_traj = phase_system(dev, smi, world, frames, render_s)
     lap("system")
+    rea_counts, realism = phase_realism(dev, smi, world, frames, system, sys_traj)
+    del frames
+    lap("realism")
     pgd_counts, pgdist = phase_pgdist(dev)
     lap("pgdist")
+    sca_counts, scaling = phase_scaling(dev, smi)
+    lap("scaling")
     e2e_counts, e2e = phase_e2e(dev, smi, pg_frames, solve["vio_window_solve_frames_per_s"],
                                 {nb: ms[f"batched_x{nb}_throughput"] for nb in (8, 16, 32)})
     lap("e2e")
@@ -3387,13 +3559,16 @@ def main():
     # path's, the others' the posegraph path's; `launches_pixels` and
     # `launches_system` are the pixels and system paths', `launches_pgdist`
     # the pose graph across devices' (none: plain torch), `launches_e2e` and
-    # `launches_retrieval` bench.py's e2e stage's and the retrieval sweep's
+    # `launches_retrieval` bench.py's e2e stage's and the retrieval sweep's,
+    # `launches_realism` and `launches_scaling` realism_bench.py's async drive's
+    # and the multi-device sweeps' with the dry run
     counts["chol_solve_batched"] = (ms_counts["chol_solve_batched"]
                                     + est_counts["chol_solve_batched"])
     counts["schur_reduce"] = red_counts["schur_reduce"]
     print(json.dumps({"solve": solve, "slice": sl, "posegraph": pg,
                       "multiseq": {**ms, **ms_est}, "pixels": pix, "system": system,
-                      "pgdist": pgdist, "e2e": e2e, "retrieval": retrieval,
+                      "realism": realism, "pgdist": pgdist, "scaling": scaling, "e2e": e2e,
+                      "retrieval": retrieval,
                       "nullspace": nullspace, "phase_s": phase_s}))
     print(smi)
     print(json.dumps({"kernels": [
@@ -3401,7 +3576,8 @@ def main():
          "replaces": KERNEL_META[k][1], "launches": counts[k],
          "launches_pixels": pix_counts[k], "launches_system": sys_counts[k],
          "launches_pgdist": pgd_counts[k], "launches_e2e": e2e_counts[k],
-         "launches_retrieval": ret_counts[k], **records[k]}
+         "launches_retrieval": ret_counts[k], "launches_realism": rea_counts[k],
+         "launches_scaling": sca_counts[k], **records[k]}
         for k in KERNEL_META]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

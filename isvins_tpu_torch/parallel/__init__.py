@@ -10,4 +10,4 @@ times."""
 from .dd_solver import dd_pose_graph_solve  # noqa: F401
 from .distributed import distributed_pose_graph_solve  # noqa: F401
 from .multi_seq import MultiSequenceSolver  # noqa: F401
-from .sharded import make_batch_problem, make_mesh, sharded_batch_solve  # noqa: F401
+from .sharded import cycle_mesh, make_batch_problem, make_mesh, sharded_batch_solve  # noqa: F401

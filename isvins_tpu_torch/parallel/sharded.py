@@ -33,6 +33,18 @@ def make_mesh(devices=None):
     return [resolve_device(d) for d in devices]
 
 
+def cycle_mesh(nd: int, devices=None):
+    """A mesh of nd entries over the devices at hand, each listed in turn:
+    None is every CUDA card torch sees (torch.cuda.device_count(); raises
+    without one), a list is taken as make_mesh takes it. With fewer devices
+    than nd a device is listed more than once (one card: that card nd
+    times), where make_mesh(nd) would ask for cards that do not exist."""
+    if devices is None:
+        resolve_device(None)
+        devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
+    devices = make_mesh(list(devices))
+    return [devices[k % len(devices)] for k in range(nd)]
+
 def sharded_batch_solve(devices, dims: WindowDims, iters: int = 10):
     """Returns (step, shard_leading) as the reference does.
 

@@ -21,6 +21,7 @@ from collections import defaultdict
 _ENABLED = False
 _LOCK = threading.Lock()
 _SAMPLES = defaultdict(list)  # name -> [dt_s, ...] (frame-path counts; tiny)
+_THREAD_TOTALS = defaultdict(float)  # (thread ident, name) -> sum of dt_s
 
 
 def enable(on: bool = True):
@@ -35,6 +36,7 @@ def enabled() -> bool:
 def reset():
     with _LOCK:
         _SAMPLES.clear()
+        _THREAD_TOTALS.clear()
 
 
 @contextlib.contextmanager
@@ -54,6 +56,16 @@ def add(name: str, dt: float):
     if _ENABLED:
         with _LOCK:
             _SAMPLES[name].append(dt)
+            _THREAD_TOTALS[(threading.get_ident(), name)] += dt
+
+
+def thread_total_s(*names) -> float:
+    """Seconds recorded so far under `names` by the calling thread alone
+    (unrounded): a caller that reads it before and after a step gets the
+    step's share of those phases, whatever other threads record meanwhile."""
+    me = threading.get_ident()
+    with _LOCK:
+        return sum(_THREAD_TOTALS.get((me, n), 0.0) for n in names)
 
 
 def stats() -> dict:

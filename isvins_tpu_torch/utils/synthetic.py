@@ -723,6 +723,25 @@ def project(world: SynthWorld, frame: int, tic, qic, px_noise: float = 0.0, rng=
     return pts, depth, visible
 
 
+def render_in_processes(render, n_frames: int, *args, procs: int = 4):
+    """Frames 0..n_frames-1, rendered by `procs` spawned processes, each
+    calling render(*args, ks) (a module-level function) on its share ks:
+    every frame of the renderers here is seeded by its index, so the split
+    does not change a pixel. procs <= 1 renders in this process."""
+    if procs <= 1:
+        return render(*args, range(n_frames))
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    shares = [range(i, n_frames, procs) for i in range(procs)]
+    with ProcessPoolExecutor(procs, mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = list(ex.map(render, *([a] * procs for a in args), shares))
+    frames = [None] * n_frames
+    for ks, imgs in zip(shares, done):
+        for k, img in zip(ks, imgs):
+            frames[k] = img
+    return frames
+
 def make_retrieval_db(K: int, R: int = 64, seed: int = 0):
     """A seeded keyframe-retrieval problem for kernel K6 (ops.retrieval_scores),
     built as the reference's kernel test builds it (tests/test_pallas_ops.py):

@@ -251,9 +251,9 @@ def test_triangulate_matches_reference(jax_run):
 
 def test_port_imports_no_jax():
     """Every isvins_tpu_torch module (the pose graph's, the multi-sequence
-    path's, the tracker's and the SfM initialization's among them), imported
-    in a fresh interpreter, leaves jax (and the JAX package) out of
-    sys.modules."""
+    path's, the tracker's, the SfM initialization's and the benches' among
+    them), imported in a fresh interpreter, leaves jax (and the JAX package)
+    out of sys.modules."""
     root = Path(__file__).resolve().parents[1]
     code = (
         "import importlib, pkgutil, sys\n"
@@ -269,8 +269,10 @@ def test_port_imports_no_jax():
         "       'isvins_tpu_torch.parallel.multi_seq', 'isvins_tpu_torch.parallel.sharded',\n"
         "       'isvins_tpu_torch.frontend.lk', 'isvins_tpu_torch.frontend.tracker',\n"
         "       'isvins_tpu_torch.initial.five_point', 'isvins_tpu_torch.initial.ex_rotation',\n"
-        "       'isvins_tpu_torch.bench', 'isvins_tpu_torch.retrieval_bench'}\n"
-        "assert len(mods) >= 53 and new <= set(mods), mods\n"
+        "       'isvins_tpu_torch.bench', 'isvins_tpu_torch.retrieval_bench',\n"
+        "       'isvins_tpu_torch.realism_bench', 'isvins_tpu_torch.scaling_bench',\n"
+        "       'isvins_tpu_torch.multichip', 'isvins_tpu_torch.utils.timing'}\n"
+        "assert len(mods) >= 57 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

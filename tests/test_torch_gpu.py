@@ -955,6 +955,116 @@ def test_pose_graph_across_devices_repeats_bit_for_bit_on_card(solver):
         assert torch.equal(x, y)
 
 
+
+@pytest.mark.gpu
+def test_realism_bench_main_on_card_at_a_cut():
+    """python -m isvins_tpu_torch.realism_bench at EuRoC's 752x480 cut to 40
+    frames (init near frame 18, about 20 steady frames), synchronous, on
+    the card: one JSON line with realism_bench.py's fields, the backend the
+    card's name, finite frame and tracker times with the tracker inside
+    the frame, poses solved and keyframes made."""
+    import json
+
+    from isvins_tpu_torch import realism_bench
+
+    _card()
+    out = realism_bench.main(40)
+    assert list(out) == list(realism_bench.FIELDS)
+    assert out["backend"] == f"cuda ({torch.cuda.get_device_name()})"
+    assert out["solved_poses"] >= 15 and out["keyframes"] >= 5
+    for k in ("tracker_ms_per_frame_median", "pipeline_ms_per_frame_median",
+              "pipeline_ms_per_frame_p90", "pipeline_fps", "tracking_fps", "ate_se3_m_vio"):
+        assert np.isfinite(out[k]) and out[k] > 0, k
+    assert out["tracker_ms_per_frame_median"] < out["pipeline_ms_per_frame_median"]
+    json.dumps(out)
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_one_card():
+    """__graft_entry__.py's dry run on the card alone (a mesh of one): the
+    product window's solve, the dense solve, one coordinated estimator."""
+    from isvins_tpu_torch import multichip
+
+    dev = _card()
+    out = multichip.dryrun_multichip(1, devices=[dev])
+    assert out["mesh"] == [str(dev)] and out["dd"] is None and out["n_solved"] == 1
+    assert out["window"][0].P.device == dev and out["dense"][0].device == dev
+
+
+def _two_cards():
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards; this machine has {torch.cuda.device_count()}")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_two_distinct_cards():
+    """The dry run on two distinct cards (mesh ["cuda:0", "cuda:1"]): the
+    windows cut across both cards and gathered on the first, dd with its
+    interface summed on the first card, the coordinator's batch cut in two,
+    one solve per card. Against the same dry run on the first card listed
+    twice, whose chunks have the same sizes: the windows and the
+    estimators' positions equal bit for bit (the same programs on the same
+    inputs); the f32 pose-graph solves, whose shards run as one batched
+    program on one card and one by one on two, each within max(256 f32 ulps
+    of the largest coordinate, 4x the one-card solve's error) of the f64
+    solve of the same inputs (chip_smoke's f32 bounds), covariance 5 %."""
+    import chip_smoke
+    from isvins_tpu_torch import multichip
+    from isvins_tpu_torch.parallel import dd_pose_graph_solve, distributed_pose_graph_solve
+
+    cards = _two_cards()
+    two = multichip.dryrun_multichip(2, devices=cards)
+    one = multichip.dryrun_multichip(2, devices=[cards[0]] * 2)
+    assert two["distinct_devices"] == 2 and one["distinct_devices"] == 1
+    for a, b in zip((*two["window"][0], two["window"][1]), (*one["window"][0], one["window"][1])):
+        assert a.device == cards[0] and torch.equal(a, b)
+    for a, b in zip(two["sequences"], one["sequences"]):
+        assert np.array_equal(a["Ps"], b["Ps"]) and a["packets"] == b["packets"] == 1
+    pg = tuple(x.astype(np.float64) if x.dtype == np.float32 else x
+               for x in multichip.pose_graph_inputs())
+    ref = dd_pose_graph_solve([cards[0]] * 2, *pg, iters=2, with_cov=True)
+    base = chip_smoke._pg_errors(one["dd"], ref)
+    chip_smoke._pg_check("dd on two cards vs f64", two["dd"], ref,
+                         chip_smoke._f32_bounds(base["t_max"], base), {})
+    Ks = 16
+    small = tuple(x[:Ks] for x in pg[:14])
+    small = small[:4] + (np.minimum(small[4], Ks - 2), np.minimum(small[5], Ks - 1)) + small[6:]
+    dense = distributed_pose_graph_solve([cards[0]] * 2, *small, iters=2)
+    err = lambda out: float((out[0].double().cpu() - dense[0].cpu()).abs().max())
+    t_max = float(dense[0].abs().max())
+    assert err(two["dense"]) <= max(256 * float(np.spacing(np.float32(t_max))),
+                                    chip_smoke.F32_MARGIN * err(one["dense"]))
+
+
+@pytest.mark.gpu
+def test_scaling_sweeps_on_two_distinct_cards():
+    """scaling_bench's sweeps on two distinct cards at a cut: dd at K = 256
+    over nd = 2, 4, 8 (the two cards in turn) against the dense solve in f64
+    at the reference tests' tolerances; 4 product windows over nd = 1, 2, 4
+    equal bit for bit to the same sweep on the first card alone (the same
+    chunks, the same programs); the interface sum measured (not null) in
+    chip_phases."""
+    import chip_smoke
+    from isvins_tpu_torch import scaling_bench
+
+    cards = _two_cards()
+    sols = {}
+    rec = scaling_bench.bench_posegraph_dd(256, devices=cards, reps=1, solutions=sols)
+    assert [r["distinct_devices"] for r in rec["measured_virtual_mesh"].values()] == [1, 2, 2, 2]
+    for nd in scaling_bench.DD_NDS:
+        chip_smoke._pg_check(f"dd{nd} on two cards vs dense", sols[nd], sols[1],
+                             chip_smoke.F64_BOUNDS, {})
+    two, one = {}, {}
+    scaling_bench.bench_window_dp(devices=cards, nb=4, reps=1, results=two)
+    scaling_bench.bench_window_dp(devices=cards[:1], nb=4, reps=1, results=one)
+    for nd in (1, 2, 4):
+        for a, b in zip((*two[nd][0], two[nd][1]), (*one[nd][0], one[nd][1])):
+            assert torch.equal(a, b), nd
+    ph = scaling_bench.chip_phases(256, devices=cards)
+    assert all(r["interface_sum_ms"] > 0 for r in ph["per_device_ms"].values())
+
 def test_resolve_device_without_a_card_raises():
     """`None` means the card: without one it raises, and so does every entry
     point that resolves its device from None; the CPU is used only when the
@@ -995,13 +1105,20 @@ def test_entry_points_default_to_the_card_and_take_cpu(tmp_path):
     from isvins_tpu_torch.system import System
 
     from isvins_tpu_torch.bench import bench_e2e, bench_solve
+    from isvins_tpu_torch.multichip import dryrun_multichip, entry
+    from isvins_tpu_torch.parallel import cycle_mesh
+    from isvins_tpu_torch.realism_bench import bench_realism, main as realism_main
     from isvins_tpu_torch.retrieval_bench import build_db
+    from isvins_tpu_torch.scaling_bench import (bench_posegraph_dd, bench_window_dp,
+                                                chip_phases, run as scaling_run)
 
     for fn in (make_batch_problem, load_pose_graph, pnp_ransac_gn, Estimator.__init__,
                FeatureTracker.__init__, PoseGraphBuilder.__init__, System.__init__,
-               bench_solve, bench_e2e, build_db):
+               bench_solve, bench_e2e, build_db, bench_realism, realism_main, entry):
         assert inspect.signature(fn).parameters["device"].default is None, fn
-    assert inspect.signature(MultiSequenceSolver.__init__).parameters["devices"].default is None
+    for fn in (MultiSequenceSolver.__init__, cycle_mesh, bench_posegraph_dd, bench_window_dp,
+               chip_phases, scaling_run, dryrun_multichip):
+        assert inspect.signature(fn).parameters["devices"].default is None, fn
     for cls in (FeatureManager, KeyframeDB):
         assert inspect.signature(cls.__init__).parameters["device"].default is inspect.Parameter.empty
     rng = np.random.default_rng(0)
