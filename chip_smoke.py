@@ -150,7 +150,7 @@ Each path's launch counts are set to 0 just before it and read just after.
                lower, both ATEs within 1.5x + 5 cm), to the sync drive
                (poses within 1e-9, the same keyframes and loops) and to no
                stalling frame
- 16. retrieval — retrieval_bench.py's 500-keyframe loop sweep through
+ 16. retrieval — retrieval_bench.py's loop sweep at 250 keyframes through
                isvins_tpu_torch.retrieval_bench on the card (corners and BRIEF
                on the card, tf-idf retrieval, PnP verification); held to the
                JAX package's sweep (retrieval_reference.py: the same
@@ -2005,7 +2005,7 @@ def room_world(n_frames):
     """realism_bench.py:66-74's world and RoomRenderer (realism_bench.
     realism_world: seed 7 world, seed 11 textures at tex_res 512, the
     camera's radtan model), frames rendered in memory before the drives by
-    realism_bench.RENDER_PROCS processes. make_world's first frames
+    utils.synthetic.RENDER_PROCS processes. make_world's first frames
     (trajectory, IMU) do not depend on n_frames (asserted here; its
     landmarks do, and RoomRenderer draws none), so the pixels phase takes
     the first PIXELS_FRAMES of the system phase's SYSTEM_FRAMES."""
@@ -3173,9 +3173,12 @@ def phase_scaling(dev, smi):
     # the window rows of every nd against the nd = 1 batch, within the
     # multiseq phase's f32 bar: 3x the gap of the 16 windows solved one by
     # one (solve_window, K3 and K4 inside) to the f64 solve of the same
-    # windows, in cost and in position (a batch of 2 and a batch of 16 round
-    # their batched products otherwise, and five f32 LM iterations on the
-    # bench problem carry that as far as another f32 path does)
+    # windows, in cost and in position. The rows of nd devices are those of
+    # chunks of 16 / nd windows solved on one device, bit for bit; a chunk of
+    # 2 rounds its batched matrix-vector products (the IMU whitening, the
+    # gradient, W dx) and the cost's row sums otherwise than a chunk of 16,
+    # and five f32 LM iterations carry that as far as another f32 path does
+    # (window_batch_probe.py)
     dims, nb, iters = scaling_bench.PRODUCT_DIMS, scaling_bench.WINDOW_NB, scaling_bench.WINDOW_ITERS
     prob = make_batch_problem(nb, dims, torch.float32, device=dev)
     f64 = lambda t: tree_map(lambda a: a.double() if a.is_floating_point() else a, t)
@@ -3425,7 +3428,7 @@ RETRIEVAL_REFERENCE = {
           "loop_rel_t_err_median_m": 0.01776116608211717,
           "loop_rel_yaw_err_median_deg": 0.2692296842421058},
 }
-RETRIEVAL_KF = 500
+RETRIEVAL_KF = 250  # retrieval_bench.py runs 500; 250 keeps the script inside its time
 
 
 def _render_retrieval(n_kf, ks):
@@ -3441,19 +3444,19 @@ def phase_retrieval(dev, n_kf=RETRIEVAL_KF):
     (isvins_tpu_torch.retrieval_bench): n_kf keyframes about 0.3 m apart on
     an r = 3 m circle (about 8 laps at 500), corners and BRIEF on the card,
     the keyframe database's post-freeze tf-idf retrieval and the builder's
-    PnP verification. Frames are rendered first by RENDER_PROCS processes.
+    PnP verification. Frames are rendered first by
+    utils.synthetic.RENDER_PROCS processes.
     Held to the JAX package's sweep (RETRIEVAL_REFERENCE)."""
     import numpy as np
 
     from isvins_tpu_torch import ops
     from isvins_tpu_torch.config import PoseGraphConfig
-    from isvins_tpu_torch.realism_bench import RENDER_PROCS
     from isvins_tpu_torch.retrieval_bench import build_db, evaluate, summarize
     from isvins_tpu_torch.utils.synthetic import render_in_processes
 
     ref = RETRIEVAL_REFERENCE[n_kf]
     t0 = time.perf_counter()
-    frames = render_in_processes(_render_retrieval, n_kf, n_kf, procs=RENDER_PROCS)
+    frames = render_in_processes(_render_retrieval, n_kf, n_kf)
     render_s = time.perf_counter() - t0
     pg = PoseGraphConfig(skip_recent=50, min_loop_matches=15)
     ops.reset_launch_counts()  # just before the main path

@@ -26,9 +26,8 @@ import argparse
 
 import numpy as np
 
+from .bench import PRODUCT_DIMS
 from .solver import WindowDims
-
-PRODUCT_DIMS = WindowDims(B=18, Vo=8, F=1000, N=3072)
 
 
 def entry(device=None):

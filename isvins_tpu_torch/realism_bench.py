@@ -36,7 +36,6 @@ import time
 import numpy as np
 
 N_FRAMES = 200
-RENDER_PROCS = 4  # processes rendering the frames
 # realism_bench.py:67-70: 1.4 laps at w = 0.9, so the revisit closes loops
 # at full resolution; IMU noise and biases as EuRoC's
 REALISM_WORLD = dict(frame_hz=20.0, imu_hz=200.0, n_landmarks=10, seed=7, traj_r=3.0,
@@ -63,7 +62,7 @@ def realism_config(fused_ransac=None):
     port's tracker option (None: the card's fused RANSAC)."""
     from .config import (CameraConfig, NoiseConfig, PoseGraphConfig, TrackerConfig,
                          WindowConfig, euroc_config)
-    from .solver import WindowDims
+    from .bench import PRODUCT_DIMS
 
     R_bc = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
     cfg = euroc_config().replace(
@@ -76,7 +75,7 @@ def realism_config(fused_ransac=None):
         posegraph=PoseGraphConfig(enabled=True, keyframe_min_dist=0.3, skip_recent=25,
                                   min_loop_matches=15, max_keyframes=512, max_kp_per_kf=256),
         tic=(0.0, 0.0, 0.0), ric=R_bc)
-    return cfg, WindowDims(B=18, Vo=8, F=1000, N=3072)
+    return cfg, PRODUCT_DIMS
 
 
 def realism_world(n_frames: int = N_FRAMES):
@@ -99,12 +98,12 @@ def _render_share(n_frames, ks):
     return [renderer.render(k)[0] for k in ks]
 
 
-def render_frames(n_frames: int = N_FRAMES, procs: int = RENDER_PROCS):
-    """realism_world(n_frames)'s frames, rendered in memory by `procs`
-    processes."""
+def render_frames(n_frames: int = N_FRAMES):
+    """realism_world(n_frames)'s frames, rendered in memory by
+    utils.synthetic.RENDER_PROCS processes."""
     from .utils.synthetic import render_in_processes
 
-    return render_in_processes(_render_share, n_frames, n_frames, procs=procs)
+    return render_in_processes(_render_share, n_frames, n_frames)
 
 
 def drive_realism(system, world, frames) -> dict:
@@ -221,6 +220,7 @@ def bench_realism(device=None, solve_async: bool = False, frames=None, n_frames=
     pipeline=True, pg_thread=True, solve_async=solve_async):
     drive_realism's result, plus the closed System under "system"."""
     from .system import System
+    from .utils.synthetic import RENDER_PROCS
 
     cfg, dims = realism_config()
     world, _ = realism_world(n_frames)

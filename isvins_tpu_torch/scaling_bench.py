@@ -38,9 +38,9 @@ import time
 
 import numpy as np
 
+from .bench import PRODUCT_DIMS
 from .solver import WindowDims
 
-PRODUCT_DIMS = WindowDims(B=18, Vo=8, F=1000, N=3072)
 DD_NDS = (2, 4, 8)
 WINDOW_NDS = (1, 2, 4, 8)
 WINDOW_NB, WINDOW_ITERS = 16, 5

@@ -12,6 +12,7 @@ marginalization, initialization, and the full estimator (SURVEY.md §4:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -723,16 +724,18 @@ def project(world: SynthWorld, frame: int, tic, qic, px_noise: float = 0.0, rng=
     return pts, depth, visible
 
 
-def render_in_processes(render, n_frames: int, *args, procs: int = 4):
-    """Frames 0..n_frames-1, rendered by `procs` spawned processes, each
-    calling render(*args, ks) (a module-level function) on its share ks:
-    every frame of the renderers here is seeded by its index, so the split
-    does not change a pixel. procs <= 1 renders in this process."""
-    if procs <= 1:
-        return render(*args, range(n_frames))
+RENDER_PROCS = min(8, os.cpu_count() or 1)  # render_in_processes' processes: a core each
+
+
+def render_in_processes(render, n_frames: int, *args):
+    """Frames 0..n_frames-1, rendered by RENDER_PROCS spawned processes,
+    each calling render(*args, ks) (a module-level function) on its share
+    ks: every frame of the renderers here is seeded by its index, so the
+    split does not change a pixel."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    procs = RENDER_PROCS
     shares = [range(i, n_frames, procs) for i in range(procs)]
     with ProcessPoolExecutor(procs, mp_context=multiprocessing.get_context("spawn")) as ex:
         done = list(ex.map(render, *([a] * procs for a in args), shares))
@@ -741,6 +744,7 @@ def render_in_processes(render, n_frames: int, *args, procs: int = 4):
         for k, img in zip(ks, imgs):
             frames[k] = img
     return frames
+
 
 def make_retrieval_db(K: int, R: int = 64, seed: int = 0):
     """A seeded keyframe-retrieval problem for kernel K6 (ops.retrieval_scores),

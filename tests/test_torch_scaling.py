@@ -14,7 +14,9 @@ the reference on the conftest's 8 virtual devices.
 - chip_phases' shapes and keys at K = 64, the interface sum measured on
   distinct devices only;
 - dryrun_multichip(2) against the JAX dryrun_multichip(2)'s pieces, taken
-  from its own calls.
+  from its own calls;
+- window_batch_probe.py at its CPU cut: the sharded rows equal the chunks
+  bit for bit, and every section prints.
 
 The card runs are chip_smoke.py's `scaling` phase and tests/test_torch_gpu.py."""
 
@@ -139,7 +141,9 @@ def test_bench_window_dp_matches_reference():
     was set at 3 iterations; the cost's own round-off grows with the two
     more run here). On the CPU a batch of one sequence rounds otherwise
     than a batch of four, so the rows of different nd are not held to each
-    other bit for bit here (the card's scaling phase holds them)."""
+    other bit for bit here; on the card they differ too, and the scaling
+    phase of chip_smoke.py holds each nd's rows to the nd = 1 rows within 3x
+    the single f32 solves' own gap to f64."""
     res = {}
     rec = scaling_bench.bench_window_dp(devices=CPUS, nb=CUT_NB, dims=CUT_DIMS, reps=1,
                                         results=res)
@@ -185,6 +189,28 @@ def test_chip_phases_shapes_at_a_cut():
         assert row["interface_bytes"] == (36 * part["NB"] ** 2 + 6 * part["NB"]) * 4
         assert one["per_device_ms"][str(nd)]["interface_sum_ms"] is None
         assert out["eff_model_vs_dense"][str(nd)] > 0
+
+
+def test_window_batch_probe_at_a_cut(capsys):
+    """window_batch_probe.py --device cpu --cut (4 windows of B=6/Vo=3/F=32/
+    N=64): one JSON line per section; the sharded solve over the CPU listed
+    nd times equals the chunks of 4 / nd solved here bit for bit, the batch
+    of all equals itself, and every chunk size took its iterations."""
+    import json
+
+    import window_batch_probe
+
+    window_batch_probe.main(["--device", "cpu", "--cut"])
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [next(iter(o)) for o in out] == ["chunks", "sharded", "growth", "first_assembly",
+                                            "first_step", "products"]
+    chunks = out[0]["chunks"]
+    assert set(chunks) == {"single", "single_contiguous", "4", "2", "1"}
+    assert chunks["4"]["largest_gap_vs_batch_of_all"] == 0.0
+    assert all(chunks[c]["sequence_iterations"] == [5] * 4 for c in ("4", "2", "1"))
+    assert all(r["equal_bit_for_bit"] for r in out[1]["sharded"].values())
+    assert set(out[1]["sharded"]) == {"2", "4"}
+    assert out[5]["single_rerun_largest_gap"] == 0.0
 
 
 def _record(monkeypatch, module, name, calls, wrap=None):
