@@ -1,0 +1,8 @@
+"""trk_dispatch_ms_p50: the median of utils.perf's `trk.dispatch` samples over the window (host
+clock, ms)."""
+
+from .common import phase_median_ms
+
+
+def read(ctx):
+    return phase_median_ms(ctx, "trk.dispatch")

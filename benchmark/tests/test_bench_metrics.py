@@ -1,0 +1,99 @@
+"""The benchmark's metric arithmetic on the CPU: percentiles over all
+frames, the union of device intervals and the idle gaps of a trace, each
+reader on a context it can and cannot read, and kernel_work against the
+bounds of PERF.md section 6 (K1 0.000181 ms, K4 0.000502 ms at the EuRoC
+window B=18, F=1000, N=3072)."""
+
+import json
+
+import numpy as np
+import pytest
+
+from benchmark import harness
+from benchmark.metrics import common
+from benchmark.trace import summarize_events
+
+from conftest import ROOT
+
+SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
+EUROC = {"B": 18, "Vo": 8, "F": 1000, "N": 3072}
+
+
+def test_percentile_is_over_every_frame():
+    lat = list(range(1, 101))  # 100 frames, 1..100 ms
+    assert harness.percentile(lat, 90) == pytest.approx(90.1)
+    assert harness.percentile([5.0] * 9 + [500.0], 90) == pytest.approx(54.5)
+
+
+@pytest.mark.parametrize("intervals,total", [
+    ([], 0), ([(0, 10)], 10), ([(0, 10), (5, 20)], 20), ([(0, 10), (20, 30)], 20),
+    ([(0, 100), (10, 20), (30, 40)], 100), ([(5, 6), (0, 1), (1, 5)], 6),
+    ([(50, 60), (0, 10), (5, 55)], 60)])
+def test_busy_time_is_the_union_of_device_intervals(intervals, total):
+    s = summarize_events([(a, b, "k") for a, b in intervals], [], 1.0)
+    assert s["busy_s"] == pytest.approx(total / 1e9)
+
+
+def test_trace_summary_busy_gaps_and_launches():
+    dev = [(0, 10, "k1"), (5, 20, "k2"), (30, 40, "k1"), (100, 110, "k3")]
+    host = [(0, 200, "frame"), (25, 35, "aten::add"), (45, 95, "aten::mul"),
+            (50, 60, "cudaLaunchKernel"), (61, 62, "cuLaunchKernel"), (80, 81, "cudaMemcpyAsync")]
+    s = summarize_events(dev, host, 200e-9)
+    assert s["launches"] == 2
+    assert s["busy_s"] == pytest.approx(20e-9 + 10e-9 + 10e-9)
+    assert s["kernels"]["k1"] == (2, pytest.approx(20e-9))
+    assert [g[0] for g in s["idle_gaps"]] == ["aten::mul", "aten::add"]
+    assert s["idle_gaps"][0][1] == pytest.approx(60e-9)
+    assert s["device_ops"][0] == ["k1", pytest.approx(20e-9)]
+
+
+def test_kernel_work_reproduces_the_kernel_tables_bounds():
+    sh = common.window_shapes(EUROC)
+    assert (sh["D"], sh["Dr"]) == (276, 114)
+    assert common.kernel_bound_s("proj_rows", sh) * 1e3 == pytest.approx(0.000181, rel=5e-3)
+    assert common.kernel_bound_s("linstep", sh) * 1e3 == pytest.approx(0.000502, rel=5e-3)
+
+
+def _ctx(trace=None, samples=None):
+    return {"phases": {}, "samples": samples or {}, "launches": {}, "dims": EUROC,
+            "trace": trace, "window_frames": 10}
+
+
+def test_readers_read_what_is_there_and_nothing_else():
+    samples = {"trk.dispatch": [0.1, 0.3, 0.2], "est.solve_device": [0.2],
+               "est.marg_collect": [0.01, 0.03], "pg.kf_device_step": [0.07],
+               "pg.opt_dispatch": [0.4, 0.5]}
+    k4_s = 0.1233e-3
+    trace = {"launches": 300_000, "frames": 10, "busy_s": 0.4, "window_s": 5.0,
+             "kernels": {"proj_rows_kernel(float*)": (110, 110 * 0.00219e-3),
+                         "schur_corr_kernel(a)": (100, 100 * 0.006e-3),
+                         "linstep_chol_kernel(b)": (100, 100 * 0.1e-3),
+                         "linstep_dl_kernel(c)": (100, 100 * 0.0173e-3)}}
+    want = {"trk_dispatch_ms_p50": 200.0, "est_solve_ms_p50": 200.0,
+            "est_marg_wait_ms_p50": 20.0, "pg_kf_step_ms_p50": 70.0,
+            "pg_opt_dispatch_ms_p50": 450.0, "launches_per_frame": 30_000.0,
+            "device_idle_pct": 92.0,
+            "k4_linstep_roofline": 100 * 0.000502e-3 / k4_s,
+            "k1_proj_rows_roofline": 100 * 0.000181e-3 / 0.00219e-3}
+    names = [m["name"] for m in SPEC["per_layer"]]
+    assert sorted(names) == sorted(want)
+    for name in names:
+        read = harness.load_reader(name)
+        assert read(_ctx(trace, samples)) == pytest.approx(want[name], rel=5e-3), name
+        assert read(_ctx()) is None, name  # nothing to read: left out, never 0
+
+
+def test_every_metric_has_a_reader_or_the_harness_takes_it():
+    for m in SPEC["end_to_end"]:
+        assert m["name"] in ("frames_per_s", "pose_latency_ms_p90", "setup_s")
+        assert m["source"] == "host_clock"
+    for m in SPEC["per_layer"]:
+        assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").exists()
+        moved = {e["name"] for e in SPEC["end_to_end"]}
+        assert m["moves"] in moved
+
+
+def test_roofline_share_never_reads_zero_without_device_time():
+    trace = {"launches": 1, "frames": 1, "busy_s": 1.0, "window_s": 2.0, "kernels": {}}
+    assert harness.load_reader("k4_linstep_roofline")(_ctx(trace)) is None
+    assert np.isfinite(common.kernel_bound_s("linstep", common.window_shapes(EUROC)))
