@@ -2097,6 +2097,7 @@ def phase_pixels(dev, smi, world, frames, render_s, n_frames=PIXELS_FRAMES):
     from isvins_tpu_torch.estimator.estimator import NON_LINEAR
     from isvins_tpu_torch.frontend import FeatureTracker
     from isvins_tpu_torch.system import System
+    from isvins_tpu_torch.utils import perf
     from isvins_tpu_torch.utils.evaluation import ate_rmse
 
     cfg, dims = pixels_config()
@@ -2148,6 +2149,8 @@ def phase_pixels(dev, smi, world, frames, render_s, n_frames=PIXELS_FRAMES):
           f"{render_s:.1f} s with the system phase's); dims={tuple(dims)} "
           f"max_cnt={cfg.tracker.max_cnt}; System(pipeline=True)")
     ops.reset_launch_counts()  # just before the main path
+    was_timing = perf.enabled()
+    perf.enable(True)  # the tracker records its stream's timing events while perf is on
     try:
         for k in range(n_frames):
             sync()
@@ -2166,6 +2169,7 @@ def phase_pixels(dev, smi, world, frames, render_s, n_frames=PIXELS_FRAMES):
         sys_.flush()
         counts = ops.launch_counts()  # just after the main path
     finally:
+        perf.enable(was_timing)
         torch.cuda.set_sync_debug_mode(0)
         del tracker.dispatch, tracker.collect
         sys_.close()

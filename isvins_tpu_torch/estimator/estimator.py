@@ -767,19 +767,26 @@ class Estimator:
         if not self._defer_dispatch:
             with perf.phase("est.solve_dispatch"):
                 handle = self._dispatch_steady(args)
+        span = perf.current()
         self._solve_pending = {
             "handle": handle, "args": args, "key": self._steady_key(),
             "old": old, "pf": pf, "G": G, "psi": psi,
             "marg_flag": self.marginalization_flag,
+            "frame": None if span is None else span.frame,
         }
 
     def collect_solve(self):
         """Install a pending async solve: reanchor, state install, outlier
-        cull, prior drag, async marg submit, failure check, window slide.
+        cull, prior drag, async marg submit, failure check, window slide,
+        under the span `est.collect_solve` of the frame that dispatched it.
         No-op when nothing is pending."""
         if self._solve_pending is None:
             return
         p, self._solve_pending = self._solve_pending, None
+        with perf.phase("est.collect_solve", frame=p["frame"]):
+            self._install_pending(p)
+
+    def _install_pending(self, p: dict):
         if p["handle"] is None:
             # deferred dispatch that no coordinator picked up: run it now
             p["handle"] = self._dispatch_steady(p["args"])
@@ -863,7 +870,14 @@ class Estimator:
         if self._marg_future is not None:
             raise RuntimeError("one marg job in flight at a time")
         self._marg_job_extra = kfp
-        self._marg_future = self._marg_exec.submit(self._marg_compute, *snap)
+        self._marg_future = self._marg_exec.submit(self._marg_job, perf.current(), snap)
+
+    def _marg_job(self, parent, snap):
+        """The worker's job: `_marg_compute` under the root span
+        `est.marg_job`, whose parent is the submitting `est.marginalize`
+        (and its frame that span's)."""
+        with perf.phase("est.marg_job", parent=parent):
+            return self._marg_compute(*snap)
 
     def collect_marg(self):
         """Install a pending async marginalization, then apply the deferred

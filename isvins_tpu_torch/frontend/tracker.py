@@ -33,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..initial.five_point import _ransac_core, epipolar_inliers
+from ..utils import perf
 from .camera import make_camera
 from .image_ops import clahe, min_dist_mask, nms_topk, shi_tomasi_response
 from .lk import padded_pyramid, pyramidal_lk
@@ -53,9 +54,10 @@ def _round_f32(cam):
 class PendingTrack:
     """A dispatched, not yet collected tracker step: the packed (M, 11)
     result in a host buffer (pinned, on the card) that the step's event
-    guards, and, on the card, the span of the stream from the upload's
-    start to the download's end (`stream_ms()` after `collect`; the stream
-    trails the host's enqueue, so this is not the card's busy time)."""
+    guards, and, on the card while utils.perf is on at the dispatch, the
+    span of the stream from the upload's start to the download's end
+    (`stream_ms()` after `collect`, else None; the stream trails the host's
+    enqueue, so this is not the card's busy time)."""
 
     def __init__(self, t, first, packed, event=None, start=None):
         self.t, self.first = t, first
@@ -249,8 +251,9 @@ class FeatureTracker:
                                 age_ok[:, None]], axis=1).astype(np.float32)
 
         cuda = self.device.type == "cuda"
+        timed = cuda and perf.enabled()
         start = end = None
-        if cuda:
+        if timed:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         img_d = self._upload("img", img)
@@ -261,7 +264,7 @@ class FeatureTracker:
         if cuda:
             host = self._pinned("packed", packed)
             host.copy_(packed, non_blocking=True)
-            end = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=timed)
             end.record()
         else:
             host = packed

@@ -99,14 +99,29 @@ class System:
 
         self.vio_trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self._pg_cursor = 0
+        # frame ids: pub_image's call count; (t, frame) of each packet handed
+        # to the estimator, until its pose comes out
+        self._frames_fed = 0
+        self._packet_frames: deque = deque(maxlen=256)
 
     # ------------------------------------------------------------------- inputs
     def pub_imu(self, t: float, acc, gyr):
+        """Buffer an IMU sample; the estimator steps the packets it
+        completes, under the root span `sys.pub_imu`."""
         self.imu_buf.append((t, np.asarray(acc), np.asarray(gyr)))
-        self._process()
+        if self._measurements_ready():
+            with perf.phase("sys.pub_imu", frame=self.feature_buf[0]["frame"]):
+                self._process()
 
     def pub_image(self, t: float, img: np.ndarray):
-        """Frequency control + tracking (System.cpp:54-142)."""
+        """Frequency control + tracking (System.cpp:54-142), under the root
+        span `sys.frame` of this call's frame id (the count of earlier
+        calls)."""
+        frame, self._frames_fed = self._frames_fed, self._frames_fed + 1
+        with perf.phase("sys.frame", frame=frame):
+            self._pub_image(t, img, frame)
+
+    def _pub_image(self, t: float, img: np.ndarray, frame: int):
         if self.first_image_time is None:
             self.first_image_time = t
             self.last_image_time = t
@@ -147,29 +162,29 @@ class System:
         if self.pipeline:
             # finish the previous frame's tracking, dispatch this frame's
             # step, and run the estimator on the queued packet meanwhile
-            self._collect_pending(dispatch_next=(t, pub_this, img))
+            self._collect_pending(dispatch_next=(t, pub_this, img, frame))
             self._process()
         else:
             out = self.tracker.read_image(img, t)
-            self._queue_packet(t, pub_this, out)
+            self._queue_packet(t, pub_this, out, frame)
             self._process()
 
     def _collect_pending(self, dispatch_next=None):
         """Collect the in-flight tracker frame (if any) into the feature
         queue, then optionally dispatch the next frame."""
         if self._pending_pub is not None:
-            t0, pub0 = self._pending_pub
+            t0, pub0, frame0 = self._pending_pub
             self._pending_pub = None
-            with perf.phase("trk.collect"):
+            with perf.phase("trk.collect", frame=frame0):
                 out = self.tracker.collect()
-            self._queue_packet(t0, pub0, out)
+            self._queue_packet(t0, pub0, out, frame0)
         if dispatch_next is not None:
-            t, pub_this, img = dispatch_next
-            with perf.phase("trk.dispatch"):
+            t, pub_this, img, frame = dispatch_next
+            with perf.phase("trk.dispatch", frame=frame):
                 self.tracker.dispatch(img, t)
-            self._pending_pub = (t, pub_this)
+            self._pending_pub = (t, pub_this, frame)
 
-    def _queue_packet(self, t: float, pub_this: bool, out: dict):
+    def _queue_packet(self, t: float, pub_this: bool, out: dict, frame: int):
         if not pub_this:
             return
         if self.init_feature:
@@ -180,7 +195,7 @@ class System:
         if sel.sum() == 0:
             return
         self.feature_buf.append({"t": t, "ids": out["ids"][sel], "pts": out["pts_norm"][sel],
-                                 "vel": out["vel"][sel]})
+                                 "vel": out["vel"][sel], "frame": frame})
 
     def flush(self):
         """End of stream: finish the in-flight tracker frame, drain the
@@ -224,8 +239,9 @@ class System:
                         elif item[0] == "prewarm":
                             self.pgbuilder.prewarm()
                         else:
-                            _, pkt, kfp, img = item
-                            self.pgbuilder.push(pkt, kfp, image=img)
+                            _, pkt, kfp, img, frame, parent = item
+                            with perf.phase("pg.push", frame=frame, parent=parent):
+                                self.pgbuilder.push(pkt, kfp, image=img)
                 except BaseException as e:  # noqa: BLE001 - raised at the next join
                     self._pg_exc = e
                 finally:
@@ -257,30 +273,46 @@ class System:
         """getMeasurements + ProcessBackEnd (System.cpp:160-202, 224-415)."""
         while self._measurements_ready():
             feat = self.feature_buf.popleft()
+            frame = feat["frame"]
             t_img = feat["t"] + self.cfg.solver.td
             est = self.estimator
             # install the previous frame's pipelined solve BEFORE the IMU
             # feed: process_imu propagates the newest state as the incoming
             # frame's initial guess (no-op unless solve_async)
             est.collect_solve()
-            self._drain_outputs()
+            self._drain_outputs(frame)
             if self.current_time < 0:
                 self.current_time = t_img
-            with perf.phase("sys.imu_feed"):
+            with perf.phase("sys.imu_feed", frame=frame):
                 self._feed_imu(t_img)
-            with perf.phase("est.process_image"):
+            self._packet_frames.append((feat["t"], frame))
+            with perf.phase("est.process_image", frame=frame):
                 est.process_image(feat["ids"], feat["pts"], feat["t"], vels=feat["vel"])
-            self._drain_outputs()
+            self._drain_outputs(frame)
 
-    def _drain_outputs(self):
-        """Move finished poses to the trajectory and feed the pose graph."""
+    def _drain_outputs(self, frame: Optional[int] = None):
+        """Move finished poses to the trajectory, each recorded as the
+        instant `sys.pose_out` of its packet's frame, and feed the pose
+        graph (the packets found while processing `frame`)."""
         est = self.estimator
         if est.ready_poses:
+            for t, _, _ in est.ready_poses:
+                perf.event("sys.pose_out", frame=self._pose_frame(t))
             self.vio_trajectory.extend(est.ready_poses)
             est.ready_poses.clear()
         if est.solver_flag == NON_LINEAR:
-            with perf.phase("sys.feed_pose_graph"):
-                self._feed_pose_graph()
+            with perf.phase("sys.feed_pose_graph", frame=frame):
+                self._feed_pose_graph(frame)
+
+    def _pose_frame(self, t: float) -> Optional[int]:
+        """The frame of the packet at time `t`; the packets before it put
+        out no pose and are dropped with it."""
+        for i, (ti, frame) in enumerate(self._packet_frames):
+            if ti == t:
+                for _ in range(i + 1):
+                    self._packet_frames.popleft()
+                return frame
+        return None
 
     def _feed_imu(self, t_img: float):
         """Feed the IMU up to t_img; the sample straddling it is split by
@@ -306,7 +338,9 @@ class System:
                 est.process_imu(dt1, acc_i, gyr_i)
                 self.current_time = t_img
 
-    def _feed_pose_graph(self):
+    def _feed_pose_graph(self, frame: Optional[int]):
+        """Hand the new keyframe packets to the builder: queued for the
+        worker with `frame` and the span that queues them, or pushed here."""
         if self.pgbuilder is None:
             return
         est = self.estimator
@@ -316,7 +350,7 @@ class System:
                    if self._pg_cursor < len(est.keyframe_points) else None)
             img = self._lookup_image(float(pkt.ts))
             if self._pg_queue is not None:
-                self._pg_queue.put(("push", pkt, kfp, img))
+                self._pg_queue.put(("push", pkt, kfp, img, frame, perf.current()))
             else:
                 self.pgbuilder.push(pkt, kfp, image=img)
             self._pg_cursor += 1

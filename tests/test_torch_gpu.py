@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from isvins_tpu_torch import ops
+from isvins_tpu_torch.utils import perf
 
 D = 276  # 15 B + 6 at the product window B = 18
 
@@ -659,15 +660,20 @@ def test_tracker_dispatch_reads_nothing_on_the_host():
     assert int(tr.valid.sum()) >= 15
     staged = {k: b.data_ptr() for k, b in tr._staging.items()}
     assert sorted(staged) == ["img", "packed", "samples", "slots"]
-    for k in (3, 4):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            pending = tr.dispatch(frames[k], world.frame_times[k])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        out = tr.collect(pending)
-        assert pending.stream_ms() > 0 and (out["track_cnt"] > 1).sum() >= 15
+    perf.enable(True)  # the stream's timing events are recorded while perf is on
+    try:
+        for k in (3, 4):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = tr.dispatch(frames[k], world.frame_times[k])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out = tr.collect(pending)
+            assert pending.stream_ms() > 0 and (out["track_cnt"] > 1).sum() >= 15
+    finally:
+        perf.enable(False)
+        perf.reset()
     assert {k: b.data_ptr() for k, b in tr._staging.items()} == staged
 
 

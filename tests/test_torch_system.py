@@ -181,6 +181,97 @@ def test_pg_thread_equivalent_to_sync(scene):
     b.close()
 
 
+# ------------------------------------------- spans with frame ids (utils.perf)
+
+@pytest.fixture(scope="module")
+def traced(scene):
+    """The loop-on drive through System(pipeline=True, pg_thread=True) with
+    utils.perf on while frames are fed (and the worker drains), off for the
+    flush, as the benchmark's window records them: (spans by id, the frame
+    thread, the trajectory, the world's frame times)."""
+    from isvins_tpu_torch.utils import perf
+
+    world, frames = scene
+    sys_ = _system("torch", True, pipeline=True, pg_thread=True)
+    sys_.wait_pg_ready()
+    perf.reset()
+    perf.enable(True)
+    try:
+        for k in range(len(frames)):
+            if k > 0:
+                acc_t = world.frame_times[k - 1]
+                for s in range(int(np.sum(world.imu_dts[k - 1] > 0))):
+                    acc_t += world.imu_dts[k - 1][s]
+                    sys_.pub_imu(acc_t, world.imu_accs[k - 1][s], world.imu_gyrs[k - 1][s])
+            sys_.pub_image(world.frame_times[k], frames[k])
+        sys_.wait_pg_ready()
+    finally:
+        perf.enable(False)
+    spans = {s.id: s for s in perf.spans()}
+    perf.reset()
+    traj = list(sys_.vio_trajectory)
+    sys_.flush()
+    sys_.close()
+    thread = {s.thread for s in spans.values() if s.name == "sys.frame"}
+    assert len(thread) == 1
+    return spans, thread.pop(), traj, world.frame_times
+
+
+def _root(spans, s):
+    while s.parent is not None:
+        s = spans[s.parent]
+    return s
+
+
+def test_traced_every_pose_has_one_pose_out_of_its_frame(traced):
+    spans, _, traj, frame_times = traced
+    outs = [s for s in spans.values() if s.name == "sys.pose_out"]
+    assert len(traj) >= 3 and len(outs) == len(traj)
+    assert sorted(float(frame_times[s.frame]) for s in outs) == sorted(t for t, _, _ in traj)
+    # a pose comes out in the next call: its instant sits under that call's root
+    assert all(_root(spans, s).frame == s.frame + 1 for s in outs)
+
+
+def test_traced_frame_thread_spans_have_a_root_and_serve_their_frame(traced):
+    """Every span on the frame thread has a root ancestor (`sys.frame` or
+    `sys.pub_imu`); with pipeline=True call k dispatches frame k's tracker
+    step, collects frame k - 1's, and the estimator serves frame k - 1."""
+    spans, thread, _, _ = traced
+    mine = [s for s in spans.values() if s.thread == thread]
+    layers = [s for s in mine if s.name.startswith(("trk.", "est.", "pg.", "sys."))]
+    assert len(layers) == len(mine) and any(s.name.startswith("est.") for s in mine)
+    for s in mine:
+        root = _root(spans, s)
+        assert root.name in ("sys.frame", "sys.pub_imu") and root.thread == thread, s
+        if root.name != "sys.frame" or s is root:
+            continue
+        want = root.frame if s.name == "trk.dispatch" else root.frame - 1
+        if s.name.startswith(("trk.", "est.")):
+            assert s.frame == want, (s, root)
+
+
+def test_traced_pg_push_names_its_frame_and_the_span_that_queued_it(traced):
+    spans, thread, _, _ = traced
+    pushes = [s for s in spans.values() if s.name == "pg.push"]
+    assert pushes
+    for s in pushes:
+        parent = spans[s.parent]
+        assert s.thread != thread and s.frame is not None
+        assert parent.name == "sys.feed_pose_graph" and parent.frame == s.frame
+    kf = [s for s in spans.values() if s.name == "pg.kf_device_step"]
+    assert kf and all(spans[s.parent].name == "pg.push" for s in kf)
+
+
+def test_traced_marg_job_is_a_child_of_its_marginalize(traced):
+    spans, thread, _, _ = traced
+    jobs = [s for s in spans.values() if s.name == "est.marg_job"]
+    assert jobs
+    for s in jobs:
+        parent = spans[s.parent]
+        assert parent.name == "est.marginalize" and parent.frame == s.frame is not None
+        assert s.thread != thread and parent.thread == thread
+
+
 # ------------------------------------------------ the port held to the JAX one
 
 @pytest.mark.parametrize("loop", [False, True], ids=["loop_off", "loop_on"])
