@@ -39,3 +39,19 @@ def device_const(values, dtype, device) -> torch.Tensor:
     at once, so the calling thread does not wait for the device, where a
     blocking copy, as torch.tensor(..., device=cuda) makes, synchronizes)."""
     return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
+_SHARED = {}  # (values, dtype, device) -> the tensor shared_const made
+
+
+def shared_const(values, dtype, device) -> torch.Tensor:
+    """A small read-only constant on `device`, made on the first call for
+    its values, dtype and device and returned to every later one. The first
+    call copies it with a blocking copy, so it is on the device when the
+    call returns and any stream may read it; a later call enqueues nothing,
+    so it may sit inside a CUDA graph capture (the tracker's steady step)."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _SHARED.get(key)
+    if t is None:
+        t = _SHARED[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

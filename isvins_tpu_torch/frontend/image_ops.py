@@ -9,7 +9,8 @@ times shifted copies, in tap order), so the port rounds as the reference
 does. Where the reference materializes a large intermediate that XLA fuses
 away (CLAHE's one-hot histograms, the min-distance mask's per-point
 distance planes), the port computes the same values without it. Nothing
-here reads the device on the host.
+here reads the device on the host; the Sobel taps are copied to a device
+once (`shared_const`), on their first call there.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import device_const
+from ..device import shared_const
 
 
 def _gauss_kernel(sigma: float, radius: int, dtype, device=None):
@@ -63,9 +64,10 @@ def build_pyramid(img, levels: int):
 
 def sobel(img):
     """(gx, gy), 3x3 Sobel with SAME padding: smooth [1,2,1]/4 across,
-    difference [-1,0,1]/2 along."""
-    smooth = device_const([0.25, 0.5, 0.25], img.dtype, img.device)
-    diff = device_const([-0.5, 0.0, 0.5], img.dtype, img.device)
+    difference [-1,0,1]/2 along. The taps are made once per dtype and
+    device, so a CUDA graph may capture this."""
+    smooth = shared_const([0.25, 0.5, 0.25], img.dtype, img.device)
+    diff = shared_const([-0.5, 0.0, 0.5], img.dtype, img.device)
     gx = _conv1d_axis(_conv1d_axis(img, smooth, 0), diff, 1)
     gy = _conv1d_axis(_conv1d_axis(img, smooth, 1), diff, 0)
     return gx, gy

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..device import device_const
+from ..device import shared_const
 from .image_ops import build_pyramid
 
 
@@ -46,12 +46,14 @@ def _shift_bilinear(q, fx, fy, P: int, dy: int, dx: int):
 class _Windows:
     """Gathers each feature's (S, S) window of one padded level. The start
     index follows jax.lax.dynamic_slice: a negative start counts from the
-    end (start + dim), then the start is clamped to [0, dim - S]."""
+    end (start + dim), then the start is clamped to [0, dim - S]. The dims
+    are a constant made once per shape and device, so a CUDA graph may
+    capture this."""
 
     def __init__(self, imgp, pad: int, S: int):
         Hp, Wp = imgp.shape
         self.flat, self.Wp, self.pad, self.S = imgp.reshape(-1), Wp, pad, S
-        self.dims = device_const([Wp, Hp], torch.int64, imgp.device)
+        self.dims = shared_const([Wp, Hp], torch.int64, imgp.device)
         self.hi = self.dims - S
         ar = torch.arange(S, device=imgp.device)
         self.grid = ar[:, None] * Wp + ar[None, :]  # (S, S) offsets from the start

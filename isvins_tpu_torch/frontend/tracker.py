@@ -23,6 +23,13 @@ without reading the device on the host; `collect` waits on that event and
 runs the host half. Each frame's padded pyramid is built once and kept for
 the next frame's LK.
 
+On the card every step leaves its image and pyramid in static "previous"
+buffers, and a steady frame's step is one replay of a CUDA graph of
+`_step` (`_StepGraph`): captured on the first steady frame after an eager
+steady one at the same input shape and dtype, replayed from static input
+buffers that the pinned staging buffers are copied into. A first frame
+(after construction or `reset`) and the CPU tracker run `_step` eagerly.
+
 The host path's epipolar RANSAC (8-point + SVD, f64) runs on CPU tensors,
 as the reference pins it to the host CPU."""
 
@@ -72,6 +79,40 @@ class PendingTrack:
         return None if self._start is None else self._start.elapsed_time(self._event)
 
 
+def _input_key(staged) -> tuple:
+    """The shapes and dtypes of a step's staged inputs: a graph replays
+    only inputs of the key it was captured at."""
+    return tuple((tuple(t.shape), t.dtype) for t in staged)
+
+
+class _StepGraph:
+    """A card tracker's steady step captured as one CUDA graph: static
+    inputs (the image in its native dtype, the per-slot rows, the RANSAC
+    samples) that `dispatch` copies the pinned staging buffers into, the
+    packed (M, 11) output, and, at the graph's end, device copies of the
+    frame's image and pyramid into the tracker's static "previous" buffers,
+    which the next replay's LK reads. The capture runs on the side stream
+    torch.cuda.graph takes, in the thread-local error mode, so that another
+    thread's use of the card (the pose-graph worker) cannot void it."""
+
+    def __init__(self, tracker, staged):
+        dev = tracker.device
+        self.key = _input_key(staged)
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in staged]
+        prev_img, prev_pyr = tracker._prev_static
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            imgf, pyr, self.packed = tracker._step(*self.inputs, first=False)
+            for dst, src in zip([prev_img, *prev_pyr], [imgf, *pyr]):
+                dst.copy_(src)
+
+    def replay(self, staged):
+        for dst, src in zip(self.inputs, staged):
+            dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        return self.packed
+
+
 class FeatureTracker:
     def __init__(self, cam_cfg, tracker_cfg, device=None):
         """`device`: where the per-frame step runs (None: the CUDA card;
@@ -97,6 +138,13 @@ class FeatureTracker:
         self._ransac_seed = 0
         self._pending = None
         self._staging = {}  # the card's pinned upload and download buffers, by name
+        # the card's steady step as a CUDA graph: the static (image, pyramid)
+        # every card step leaves its frame in, the graph, and the input key
+        # of the last eager steady step (a capture follows one at its key)
+        self._prev_static = None
+        self._graph = None
+        self._warm_key = None
+        self.captures = self.replays = self.eager_steps = 0
 
         # epipolar RANSAC placement (TrackerConfig.fused_ransac): fused into
         # the device step on the card, the f64 host path on the CPU, as the
@@ -138,17 +186,19 @@ class FeatureTracker:
         if img is None:
             self.prev_img = self._prev_pyr = None
         else:
-            self.prev_img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
-            self._prev_pyr = padded_pyramid(self.prev_img, self.cfg.lk_levels, self._pad)
+            img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
+            self._keep_prev(img, padded_pyramid(img, self.cfg.lk_levels, self._pad))
 
     # ------------------------------------------------------------ device step
-    def _step(self, img, pts, valid, prev_un2, age_ok, samples, first: bool):
+    def _step(self, img, slots, samples, first: bool):
         """The per-frame device work. Returns (imgf, its padded pyramid,
         packed (M, 11) f32); fixed capacity M. `img` may arrive uint8 and
-        is converted here. prev_un2 (M, 2) / age_ok (M,) / samples (S, 8)
-        feed the fused epipolar RANSAC (unused when it is off or on the
-        first frame)."""
+        is converted here. slots (M, 6) f32: pts, prev_un xy, valid,
+        age_ok; prev_un xy / age_ok / samples (S, 8) feed the fused
+        epipolar RANSAC (unused when it is off or on the first frame)."""
         cfg = self.cfg
+        pts, prev_un2 = slots[:, 0:2], slots[:, 2:4]
+        valid, age_ok = slots[:, 4] > 0.5, slots[:, 5] > 0.5
         imgf = img.to(torch.float32)
         if cfg.equalize:
             imgf = clahe(imgf)
@@ -215,11 +265,39 @@ class FeatureTracker:
                                                     pin_memory=True)
         return buf
 
-    def _upload(self, name: str, a: np.ndarray):
+    def _stage(self, name: str, a: np.ndarray) -> torch.Tensor:
+        """`a` as a tensor: on the card in the pinned staging buffer `name`
+        (the source of a non_blocking upload), on the CPU as it is."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type != "cuda":
             return t
-        return self._pinned(name, t).copy_(t).to(self.device, non_blocking=True)
+        return self._pinned(name, t).copy_(t)
+
+    def _keep_prev(self, imgf, pyr):
+        """Install a card step's image and pyramid as the previous frame's:
+        copied into the static buffers (made on first use) that the graph
+        reads; on the CPU kept as they are."""
+        if self.device.type == "cuda":
+            if self._prev_static is None:
+                self._prev_static = (torch.empty_like(imgf), [torch.empty_like(p) for p in pyr])
+            dst_img, dst_pyr = self._prev_static
+            for dst, src in zip([dst_img, *dst_pyr], [imgf, *pyr]):
+                dst.copy_(src)
+            imgf, pyr = dst_img, dst_pyr
+        self.prev_img, self._prev_pyr = imgf, pyr
+
+    def _graph_for(self, staged):
+        """The steady step's graph for these staged inputs, captured here
+        when there is none for their shapes and dtypes and an eager steady
+        step ran at them; None (an eager step) otherwise."""
+        key = _input_key(staged)
+        if self._graph is None or self._graph.key != key:
+            if self._warm_key != key:
+                return None
+            self._graph = None  # the old graph's memory goes before the new capture
+            self._graph = _StepGraph(self, staged)
+            self.captures += 1
+        return self._graph
 
     def dispatch(self, img: np.ndarray, t: float) -> PendingTrack:
         """Enqueue this frame's device step WITHOUT waiting for the device
@@ -256,11 +334,21 @@ class FeatureTracker:
         if timed:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-        img_d = self._upload("img", img)
-        slots_d = self._upload("slots", slots)
-        samples_d = self._upload("samples", samples)
-        imgf, pyr, packed = self._step(img_d, slots_d[:, 0:2], slots_d[:, 4] > 0.5,
-                                       slots_d[:, 2:4], slots_d[:, 5] > 0.5, samples_d, first)
+        staged = [self._stage("img", img), self._stage("slots", slots),
+                  self._stage("samples", samples)]
+        graph = None if first or not cuda else self._graph_for(staged)
+        if graph is not None:
+            with perf.phase("trk.replay"):
+                packed = graph.replay(staged)
+            self.replays += 1
+        else:
+            with perf.phase("trk.step_eager"):
+                imgf, pyr, packed = self._step(
+                    *(t.to(self.device, non_blocking=True) for t in staged), first=first)
+            self.eager_steps += 1
+            self._keep_prev(imgf, pyr)
+            if not first:
+                self._warm_key = _input_key(staged)
         if cuda:
             host = self._pinned("packed", packed)
             host.copy_(packed, non_blocking=True)
@@ -268,7 +356,6 @@ class FeatureTracker:
             end.record()
         else:
             host = packed
-        self.prev_img, self._prev_pyr = imgf, pyr
         self._pending = PendingTrack(t, first, host, end, start)
         return self._pending
 

@@ -599,7 +599,7 @@ def test_converged_f32_solve_keeps_its_bits_on_card():
 
 @pytest.mark.gpu
 def test_shi_tomasi_reads_nothing_on_the_host():
-    """shi_tomasi_response (its Sobel taps made with device_const) on a
+    """shi_tomasi_response (its Sobel taps made with shared_const) on a
     CUDA image under torch.cuda.set_sync_debug_mode("error") raises nothing,
     and equals the CPU's response within 1e-4 of its largest entry."""
     dev = _card()
@@ -695,6 +695,93 @@ def test_card_tracker_matches_cpu_tracker():
     equal, gap_median, _ = chip_smoke._slot_agreement(a, b)
     assert equal >= 0.95 and gap_median <= 0.05, (equal, gap_median)
     assert sum(len(p["ids"]) for p in a) > 150
+
+
+def _graph_buffers(tr):
+    """The data pointers of a card tracker's static graph buffers: the
+    previous image and pyramid, the graph's inputs and its packed output."""
+    img, pyr = tr._prev_static
+    g = tr._graph
+    return [t.data_ptr() for t in (img, *pyr, *g.inputs, g.packed)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,H,max_cnt", [(320, 240, 70), (752, 480, 150)])
+def test_graph_tracker_matches_eager_card_tracker(W, H, max_cnt):
+    """The card tracker, its steady steps replayed as a CUDA graph, against
+    the same class stepping eagerly on the card (its graph left unbuilt by
+    the test), over 12 rendered frames with a reset at frame 6 and, at
+    frame 9, the state the eager tracker held after frame 3 loaded into
+    both: every packet equal bit for bit; one capture; a replay on every
+    steady frame but the warm-up (frame 1); the static buffers at the same
+    addresses from the capture on."""
+    dev = _card()
+    from isvins_tpu_torch.config import TrackerConfig
+    from isvins_tpu_torch.frontend import FeatureTracker
+    from isvins_tpu_torch.utils.convert import tracker_state
+
+    cam, world, frames = _room_frames(12, W=W, H=H)
+    cfg = TrackerConfig(max_cnt=max_cnt, min_dist=16, freq=100, lk_levels=4, lk_win=21,
+                        equalize=True, border=4)
+    graphed = FeatureTracker(cam, cfg, device=dev)
+    eager = FeatureTracker(cam, cfg, device=dev)
+    eager._graph_for = lambda staged: None
+    ptrs = saved = None
+    tracked = 0
+    for k, (img, t) in enumerate(zip(frames, world.frame_times)):
+        if k == 6:
+            graphed.reset()
+            eager.reset()
+        if k == 9:
+            graphed.load_state(saved)
+            eager.load_state(saved)
+        a, b = graphed.read_image(img, t), eager.read_image(img, t)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=f"frame {k}: {key}")
+        tracked += int((b["track_cnt"] > 1).sum())
+        if k == 2:
+            ptrs = _graph_buffers(graphed)
+        if k == 3:
+            saved = tracker_state(eager)
+        if k >= 2:
+            assert _graph_buffers(graphed) == ptrs, k
+    assert tracked > 150, tracked
+    assert (graphed.captures, graphed.replays, graphed.eager_steps) == (1, 9, 3)
+    assert (eager.captures, eager.replays, eager.eager_steps) == (0, 0, 12)
+
+
+@pytest.mark.gpu
+def test_tracker_replay_reads_nothing_on_the_host():
+    """A replayed steady dispatch under torch.cuda.set_sync_debug_mode(
+    "error") raises nothing, with utils.perf on: it sits in a trk.replay
+    span, the stream's timing events are recorded, and collect returns a
+    packet that keeps its tracks."""
+    dev = _card()
+    from isvins_tpu_torch.frontend import FeatureTracker
+
+    cam, world, frames = _room_frames(6)
+    tr = FeatureTracker(cam, _tracker_cfg(None), device=dev)
+    for k in range(3):
+        tr.read_image(frames[k], world.frame_times[k])
+    assert tr.captures == 1 and tr.replays == 1
+    perf.reset()
+    perf.enable(True)
+    try:
+        for k in (3, 4, 5):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = tr.dispatch(frames[k], world.frame_times[k])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out = tr.collect(pending)
+            assert pending.stream_ms() > 0 and (out["track_cnt"] > 1).sum() >= 15
+        names = [s.name for s in perf.spans()]
+    finally:
+        perf.enable(False)
+        perf.reset()
+    assert names.count("trk.replay") == 3 and "trk.step_eager" not in names
+    assert (tr.captures, tr.replays, tr.eager_steps) == (1, 4, 2)
 
 
 @pytest.mark.gpu

@@ -23,6 +23,7 @@ from isvins_tpu_torch.frontend import FeatureTracker
 from isvins_tpu_torch.frontend import image_ops as tops
 from isvins_tpu_torch.frontend.lk import pyramidal_lk
 from isvins_tpu_torch.initial.five_point import epipolar_inliers
+from isvins_tpu_torch.utils import perf
 from isvins_tpu_torch.utils import synthetic as tsyn
 from isvins_tpu_torch.utils.convert import tracker_state
 
@@ -412,6 +413,32 @@ def test_dispatch_collect_contract():
         with pytest.raises(AssertionError):
             a.dispatch(img, 0.05 * k)
         _packet_match(b.read_image(img, 0.05 * k), a.collect(pend), f"frame {k}")
+
+
+def test_cpu_tracker_never_captures():
+    """The CPU tracker steps eagerly on every frame, a reset and a
+    load_state among them: no CUDA graph is captured or replayed, every
+    dispatch counts among eager_steps, and with utils.perf on each step sits
+    in a trk.step_eager span and none in trk.replay."""
+    tk = TTrackerConfig(max_cnt=30, min_dist=8, lk_levels=2, equalize=False)
+    tr = FeatureTracker(TCameraConfig(**CAM_320), tk, device=CPU)
+    imgs = [np.roll(_image(240, 320, 6), k, axis=0).astype(np.uint8) for k in range(6)]
+    perf.reset()
+    perf.enable(True)
+    try:
+        for k, img in enumerate(imgs):
+            if k == 2:
+                tr.reset()
+            if k == 4:
+                tr.load_state(tracker_state(tr))
+            tr.read_image(img, 0.05 * k)
+        names = [s.name for s in perf.spans()]
+    finally:
+        perf.enable(False)
+        perf.reset()
+    assert (tr.captures, tr.replays, tr.eager_steps) == (0, 0, len(imgs))
+    assert names.count("trk.step_eager") == len(imgs) and "trk.replay" not in names
+    assert tr._graph is None and tr._prev_static is None
 
 
 @pytest.mark.parametrize("name", ["StampRenderer", "PatchRenderer"])
