@@ -1,22 +1,24 @@
 """What the timed path produces, copied where it is produced, for the
 comparison that decides `correct` (benchmark/reference/check.py).
 
-While the window runs, thin wrappers around five calls of the port copy
-their host inputs and outputs as plain NumPy trees (no object of the port
-is kept, so the reference reads nothing of the program but numbers):
+While the window runs, thin wrappers around calls of the port copy their
+host inputs and outputs as plain NumPy trees (no object of the port is
+kept, so the reference reads nothing of the program but numbers):
 
 - the steady solve: the host tree that `estimator.to_device` uploads
   (window state, raw IMU segments, triangulation inputs, projection
   factors, priors, gravity, pixel information), the solved state that
   `Estimator._install_solution` then receives with its anchor (frame 0's
   pose before the solve), and the state the estimator holds once it
-  returns;
-- the steady solve's kernels K1 (proj_rows), K2 (imu_rows) and K4
-  (linstep), and the normal equations that K1 and K2 feed
-  (`build_normal_equations`: their rows summed per frame pair and
-  landmark): in every few solves one call of each, its tensor arguments
-  and outputs copied on the device as it returns (moved to the host after
-  the window);
+  returns (its P, Q, V, Ba, Bg and the extrinsic tic, qic);
+- the steady solve's kernels K1 (proj_rows, or on the extrinsic branch
+  of a configuration that estimates the extrinsic its row function
+  `projection_residual_jacobians`, with the solve's projection-factor
+  mask), K2 (imu_rows) and K4 (linstep), and the normal equations that
+  K1 and K2 feed (`build_normal_equations`: their rows summed per frame
+  pair and landmark): in every few solves one call of each, its tensor
+  arguments and outputs copied on the device as it returns (moved to the
+  host after the window);
 - the marginalization job: `Estimator._marg_compute`'s arguments (its
   snapshot) and its result, on the marginalization worker thread;
 - loop verification: `pnp_ransac_gn`'s arguments and result, as the
@@ -25,23 +27,27 @@ is kept, so the reference reads nothing of the program but numbers):
   `optimize_pose_graph` reads, at its call, and the PendingOptimize it
   returns (its host outputs are read after the flush);
 - the tracker: after each frame's calls the harness copies the tracker's
-  host track state (`Drive.step`), nothing is wrapped.
+  host track state (`Drive.step`); and in every few frames the packet
+  that `FeatureTracker.collect` returns (ids, pixels, normalized points:
+  the undistortion through the camera model).
 
 Each wrapper copies only while `armed` (the measured window), and never
 reads the device.
 
 These are the names of the port that the comparison needs, and that a
 change to the port has to keep (or a benchmark change has to move first):
-`estimator.to_device` called with steady_solve's host argument tree,
+`estimator.to_device` called with steady_solve's host argument tree (its
+fourth leaf the ProjFactors, with `valid`),
 `Estimator._install_solution` and the state it sets (`Ps`, `Qs`, `Vs`,
-`Bas`, `Bgs`), `Estimator._marg_compute`, the pose-graph
+`Bas`, `Bgs`, `tic`, `qic`), `Estimator._marg_compute`, the pose-graph
 builder module's `pnp_ransac_gn` and `optimize_pose_graph`, the tracker's
-`pts`, `ids`, `valid` and `track_cnt`, and the solver module's
-`_proj_ops.proj_rows`, `imu_rows`, `build_normal_equations` and
-`linstep`, called from Python at every LM evaluation. A steady solve
-replayed as a CUDA graph makes no such call in the window: K1's, K2's,
-the normal equations' and K4's numbers then have no answer and `correct`
-reads false."""
+`pts`, `ids`, `valid` and `track_cnt`, its `collect` and the packet's
+`ids`, `pts_px` and `pts_norm`, and the solver module's
+`_proj_ops.proj_rows`, `projection_residual_jacobians`, `imu_rows`,
+`build_normal_equations` and `linstep`, called from Python at every LM
+evaluation. A steady solve replayed as a CUDA graph makes no such call in
+the window: K1's, K2's, the normal equations' and K4's numbers then have
+no answer and `correct` reads false."""
 
 from __future__ import annotations
 
@@ -55,6 +61,10 @@ import numpy as np
 # iterations + 1 evaluations of K1, K2 and the normal equations they feed,
 # one K4 step an iteration
 KERNEL_CALLS = {"proj_rows": 11, "imu_rows": 11, "normal_equations": 11, "linstep": 10}
+# K1's rows on the extrinsic branch: a solve calls either proj_rows or
+# this, as often, so its copy takes proj_rows' pick (and the draws from
+# the seed stay those of a configuration without the branch)
+PROJ_ROWS_EX = "proj_rows_ex"
 
 # the arguments of the normal equations' build that are copied: the LM
 # state, the IMU factors, the projection factors, the priors, gravity and
@@ -77,14 +87,16 @@ def freeze(tree):
 
 class Captures:
     def __init__(self, system, seed: int = 0, kernel_stride: int = 8, kernel_cap: int = 10,
-                 solve_cap: int = 1 << 30):
+                 solve_cap: int = 1 << 30, lift_cap: int = 0):
         self.system = system
         self.armed = False
         self.lock = threading.Lock()
         self.solves, self.margs, self.loops, self.optimizes = [], [], [], []
-        self.kernels = {name: [] for name in KERNEL_CALLS}
+        self.kernels = {name: [] for name in (*KERNEL_CALLS, PROJ_ROWS_EX)}
         self.tracks = {}  # frame index -> the tracker's state after that frame's collect
+        self.lifts = []  # the tracker's packets (ids, pts_px, pts_norm)
         self._solve_in = None
+        self._proj_valid = None
         self._undo = []
         # the kernel calls copied: in every kernel_stride-th steady solve of
         # the window (the first drawn from the seed), one call of each
@@ -94,6 +106,11 @@ class Captures:
         self._n_solves = 0
         self._next_pick = int(self._rng.integers(0, kernel_stride))
         self._pick, self._calls = {}, {}
+        # the tracker's packets copied: every kernel_stride-th of the
+        # window, the first drawn from the seed (a generator of its own, so
+        # that the kernels' picks stay as they were), at most lift_cap
+        self._lcap, self._n_packets = lift_cap, 0
+        self._next_packet = int(np.random.default_rng([seed, 1]).integers(0, kernel_stride))
 
     # ------------------------------------------------------------ install
     def install(self):
@@ -113,6 +130,7 @@ class Captures:
                     self._next_pick += self._stride
                     self._pick = {name: int(self._rng.integers(0, n))
                                   for name, n in KERNEL_CALLS.items()}
+                    self._proj_valid = np.array(tree[3].valid)
                 self._n_solves += 1
             return to_device(tree, device, dtype)
 
@@ -122,7 +140,7 @@ class Captures:
                 self.solves.append({"inputs": self._solve_in, "state": freeze(new_state),
                                     "anchor": freeze((P0_old, Q0_old)),
                                     "installed": freeze((est.Ps, est.Qs, est.Vs, est.Bas,
-                                                         est.Bgs))})
+                                                         est.Bgs, est.tic, est.qic))})
                 self._solve_in = None
             return out
 
@@ -144,11 +162,27 @@ class Captures:
         win_mod._proj_ops = types.SimpleNamespace(
             proj_rows=self._kernel_copy("proj_rows", proj_mod.proj_rows))
         self._undo.append(lambda: setattr(win_mod, "_proj_ops", proj_alias))
-        for name in ("imu_rows", "linstep", "build_normal_equations"):
+        for name, key in (("imu_rows", "imu_rows"), ("linstep", "linstep"),
+                          ("build_normal_equations", "normal_equations"),
+                          ("projection_residual_jacobians", PROJ_ROWS_EX)):
             orig = getattr(win_mod, name)
-            key = "normal_equations" if name == "build_normal_equations" else name
             setattr(win_mod, name, self._kernel_copy(key, orig))
             self._undo.append(lambda name=name, orig=orig: setattr(win_mod, name, orig))
+
+        trk = self.system.tracker
+        collect = trk.collect
+
+        def collect_copy(*args, **kw):
+            out = collect(*args, **kw)
+            if self.armed and len(self.lifts) < self._lcap:
+                if self._n_packets == self._next_packet:
+                    self._next_packet += self._stride
+                    self.lifts.append({k: np.array(out[k]) for k in ("ids", "pts_px", "pts_norm")})
+                self._n_packets += 1
+            return out
+
+        trk.collect = collect_copy
+        self._undo.append(lambda: trk.__dict__.pop("collect", None))
 
         est_mod.to_device = to_device_copy
         est._install_solution = install_copy
@@ -187,16 +221,20 @@ class Captures:
         """The wrapper of `orig`, copying (on the device, without a host
         read) its tensor arguments and outputs at the picked call."""
         nargs = NORMAL_ARGS if name == "normal_equations" else None
+        ex = name == PROJ_ROWS_EX
+        drawn = "proj_rows" if ex else name
 
         def call(*args):
             out = orig(*args)
-            pick = self._pick.get(name)
+            pick = self._pick.get(drawn)
             if pick is not None and self.armed and len(self.kernels[name]) < self._kcap:
-                i = self._calls.get(name, 0)
-                self._calls[name] = i + 1
+                i = self._calls.get(drawn, 0)
+                self._calls[drawn] = i + 1
                 if i == pick:
-                    self.kernels[name].append({"args": _tree(args[:nargs], _clone),
-                                               "out": _tree(tuple(out), _clone)})
+                    c = {"args": _tree(args[:nargs], _clone), "out": _tree(tuple(out), _clone)}
+                    if ex:  # the row function takes no mask: the solve's projection factors'
+                        c["valid"] = self._proj_valid
+                    self.kernels[name].append(c)
             return out
         return call
 

@@ -4,8 +4,10 @@ of answers the control: the reference put in the program's place in the
 precision below the configuration's (benchmark/reference/precision.py for
 the float32 layers, float32 for the float64 ones).
 
-    python3 -m benchmark.control --workload <cell> --seeds 11,12,13 --seconds 20
+    python3 -m benchmark.control --workload <cell> --seeds 11,12,13 --seconds 20 [--fault <name>]
 
+`--fault` plants one of benchmark/faults.py's faults under the timed path
+before each window: the program's readings are then the fault's. It
 prints one JSON line per seed: {"seed", "correct" (the program's),
 "control_correct" (the control judged by the same limits, through the
 same comparison), "program": {number: reading}, "control": {number:
@@ -31,6 +33,7 @@ def main(argv=None):
     ap.add_argument("--seconds", type=int, required=True)
     ap.add_argument("--answers", type=int, default=0,
                     help="compare up to this many answers of each layer (default: the traffic's)")
+    ap.add_argument("--fault", default=None, help="a fault of benchmark/faults.py to plant")
     args = ap.parse_args(argv)
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
@@ -40,16 +43,18 @@ def main(argv=None):
         print("control: no CUDA card", file=sys.stderr)
         sys.exit(2)
     from benchmark import harness
+    from benchmark.faults import FAULTS
 
+    fault = FAULTS[args.fault] if args.fault else None
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         res = harness.run_cell(args.workload, seed, args.seconds, False, t0, device="cuda:0",
-                               root=ROOT, control=True,
+                               root=ROOT, control=True, fault=fault,
                                counts=({k: args.answers for k in ("tracks", "solves", "margs",
                                                                   "loops", "optimizes")}
                                        if args.answers else None))
         ctl = res.pop("_control")
-        print(json.dumps({"seed": seed, "correct": res["correct"],
+        print(json.dumps({"seed": seed, "fault": args.fault, "correct": res["correct"],
                           "control_correct": res["_control_correct"],
                           "control_checks": res["_control_checks"],
                           "program": {k: v["program"] for k, v in ctl.items()},

@@ -265,7 +265,8 @@ def run_cell(workload: str, seed: int, seconds: int, trace: bool, t_proc0: float
         fault(system)
     chk = traffic["check"]
     cap = Captures(system, seed=child_seeds(seed)[2] + 1, kernel_stride=int(chk["kernel_stride"]),
-                   kernel_cap=int(chk["kernels"]), solve_cap=int(chk["solves"]))
+                   kernel_cap=int(chk["kernels"]), solve_cap=int(chk["solves"]),
+                   lift_cap=int(chk["tracks"]))
     cap.install()
     tr = traffic["trace"]
     slicer = None

@@ -9,11 +9,12 @@ benchmark/reference/vio, and reads the gap to what the layer produced:
 | number | layer | gap |
 |---|---|---|
 | trk_lk_px | tracker: CLAHE, pyramid, LK of the published tracks | the largest pixel distance of a track the program kept to the reference's LK from the same start, over the tracks whose window the reference finds well conditioned (TRACK_COND) |
-| k1_rows_rel_gap | K1: the projection rows of the steady solve | the largest over the call's valid rows whose point lies inside the camera's view in the reference (ROW_COND) of the row's largest gap (r, J_pi, J_pj, J_dep) over the row's largest magnitude |
+| trk_lift_px | tracker: the undistortion of the published points through the configuration's camera model | the largest distance on the normalized plane (z = 1) of a packet's point to the reference's lift of its pixel (benchmark/traffic/camera.py), times fx |
+| k1_rows_rel_gap | K1: the projection rows of the steady solve (on the extrinsic branch, where the configuration estimates the extrinsic, the rows of projection_residual_jacobians) | the largest over the call's valid rows whose point lies inside the camera's view in the reference (ROW_COND) of the row's largest gap (r, J_pi, J_pj, J_dep; and J_ex on the extrinsic branch) over the row's largest magnitude |
 | k2_rows_rel_gap | K2: the IMU rows | the largest over the call's factors with IMU samples of the same (r, Jcat) |
 | normal_eq_rel_gap | the normal matrices K1's and K2's rows are summed into (per frame, frame pair and landmark: the segment sums) | the largest gap of an entry of H or W over the bound its terms set (sqrt(H_ii H_jj) for H_ij, sqrt(h_l H_jj) for W_lj) |
 | k4_step_backward_err | K4: the Schur-reduced, damped LM step | how far (dx, dl) is from solving the system built from the call's arguments, entry by entry over the sizes of its terms |
-| solve_cost_excess | steady solve (DLT seeding, preintegration, 10 LM iterations through K1-K4) and its install | the window's float64 cost at the program's answer over that at the reference's answer, less 1; infinite where the estimator's installed state is not the answer re-anchored |
+| solve_cost_excess | steady solve (DLT seeding, preintegration, 10 LM iterations through K1-K4) and its install | the window's float64 cost at the program's answer over that at the reference's answer, less 1; infinite where the estimator's installed state is not the answer re-anchored (with the answer's tic and qic where the configuration estimates the extrinsic) |
 | marg_rel_gap | marginalization (forward and backward, the pose-graph packet) | largest gap of any output leaf, over that leaf's largest magnitude or the median leaf's, whichever is larger |
 | loop_pnp_gap_m | loop verification (PnP-RANSAC and refit) | largest gap in camera centre; an accept decision or an inlier set that differs reads infinite |
 | pg_cost_excess | pose graph: the optimized keyframe poses | the segment's float64 cost at the program's poses over that at the reference's, less 1 |
@@ -24,12 +25,13 @@ from the seed.
 
 `control=True` puts the reference itself in the program's place, in the
 nearest precision below the one the configuration states that reaches
-what decides the layer's answer (TF32 products for K2's and K4's rows;
-bfloat16 for the tracker and K1, which have no product, and, as storage
-of every float32 result, for the steady solve's and the pose graph's
-answers, where TF32 products change nothing that float32 does not;
-float32 for the float64 layers), and reads its gap to the float64
-reference the same way. Nothing here imports the port."""
+what decides the layer's answer (TF32 products for K2's and K4's rows and
+for K1's rows on the extrinsic branch, whose row function multiplies 3x3
+matrices; bfloat16 for the tracker, its lift and K1, which have no
+product, and, as storage of every float32 result, for the steady solve's
+and the pose graph's answers, where TF32 products change nothing that
+float32 does not; float32 for the float64 layers), and reads its gap to
+the float64 reference the same way. Nothing here imports the port."""
 
 from __future__ import annotations
 
@@ -39,10 +41,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..traffic import camera
 from .precision import Bf16Storage, Tf32Products
 from .vio.estimator.marginalization import PoseGraphPacket, marg_backward, marg_forward
 from .vio.estimator.steady import device_triangulate, steady_solve
 from .vio.factors import ImuNoise, integrate_segment
+from .vio.factors.projection import projection_residual_jacobians
 from .vio.factors.preintegration import Preintegration
 from .vio.frontend.image_ops import clahe
 from .vio.frontend.lk import _dot, _shift_bilinear, _Windows, padded_pyramid, pyramidal_lk
@@ -60,7 +64,7 @@ _CLASSES = {c.__name__: c for c in (WindowState, ProjFactors, ImuFactors, PriorS
 
 # the numbers compared (each with a limit in the configuration), and those
 # of them that only a configuration with loop closure has
-NUMBERS = ("trk_lk_px", "k1_rows_rel_gap", "k2_rows_rel_gap", "normal_eq_rel_gap",
+NUMBERS = ("trk_lk_px", "trk_lift_px", "k1_rows_rel_gap", "k2_rows_rel_gap", "normal_eq_rel_gap",
            "k4_step_backward_err", "solve_cost_excess", "marg_rel_gap", "loop_pnp_gap_m", "pg_cost_excess",
            "pg_cov_rel_gap")
 LOOP_NUMBERS = ("loop_pnp_gap_m", "pg_cost_excess", "pg_cov_rel_gap")
@@ -134,6 +138,7 @@ class Reference:
                               float(n["gyr_w"]))
         self.solver = eng["solver"]
         self.tracker = eng["tracker"]
+        self.camera = eng["camera"]
         self.estimate_extrinsic = bool(eng["estimate_extrinsic"])
 
     def _f32_layer(self):
@@ -251,8 +256,9 @@ class Reference:
 
     def kernel(self, name: str, args):
         """The plain version of a kernel wrapper on its copied arguments:
-        K1 proj_rows (r, J_pi, J_pj, J_dep), K2 imu_rows (r, Jcat), K4
-        linstep (dx, dl)."""
+        K1 proj_rows (r, J_pi, J_pj, J_dep), on the extrinsic branch
+        projection_residual_jacobians (r, J_pi, J_pj, J_ex, J_dep), K2
+        imu_rows (r, Jcat), K4 linstep (dx, dl)."""
         dtype, mode = (self._elementwise_layer() if name == "proj_rows" else self._f32_layer())
         T = lambda a: (torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
                        if np.asarray(a).dtype.kind == "f" else
@@ -262,8 +268,18 @@ class Reference:
                 H, b, W, h, b_l, lam, n_pose = args
                 return linstep_ref(T(H), T(b), T(W), T(h), T(b_l), T(lam), int(n_pose),
                                    np.asarray(H).shape[0])
-            fn = {"proj_rows": proj_rows_ref, "imu_rows": imu_rows_ref}[name]
+            fn = {"proj_rows": proj_rows_ref, "proj_rows_ex": projection_residual_jacobians,
+                  "imu_rows": imu_rows_ref}[name]
             return fn(*(T(a) for a in args))
+
+    def lift(self, pts_px):
+        """The normalized points (M, 2), z = 1, of pixels (M, 2) lifted
+        through the configuration's camera model, as float64 NumPy."""
+        dtype, mode = self._elementwise_layer()
+        uv = torch.as_tensor(np.asarray(pts_px, np.float64), device=self.device).to(dtype)
+        with mode:
+            xy = camera.z1(camera.lift(self.camera, uv))[..., :2]
+        return xy.double().cpu().numpy()
 
     def lk(self, img0, img1, pts0, valid0):
         """The tracker's LK of pts0 from frame img0 to img1 (uint8 host
@@ -304,6 +320,14 @@ class _NoMode:
 
 
 # ------------------------------------------------------------- the gaps
+def ex_rows_as_k1(args, valid):
+    """The arguments of a call of the extrinsic branch's row function
+    (pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, inverse depth) laid out as
+    K1's, with the solve's projection-factor mask as K1's last argument."""
+    return tuple(args[:6]) + tuple(np.asarray(a).reshape(-1, np.shape(a)[-1])
+                                   for a in args[6:8]) + (args[8], valid)
+
+
 def row_cond(args):
     """Per row of a K1 call, in float64 from its arguments: the distance
     of the row's point from camera j over its depth in front of it,
@@ -343,11 +367,17 @@ def reanchor(P, Q, V, P0_old, Q0_old):
     return P_new, Q_new, V @ rot.T
 
 
-def install_gap(answer, installed, anchor) -> float:
+def install_gap(answer, installed, anchor, extrinsic: bool = False) -> float:
     """Largest gap of the installed (P, Q, V, Ba, Bg) to the answer (a
-    frozen WindowState) re-anchored at `anchor` (P0_old, Q0_old)."""
-    _, P, Q, V, Ba, Bg = answer[:6]
+    frozen WindowState) re-anchored at `anchor` (P0_old, Q0_old); with
+    `extrinsic`, also of the installed (tic, qic) to the answer's, which
+    the re-anchoring leaves as they are."""
+    _, P, Q, V, Ba, Bg, tic, qic = answer[:8]
     want = reanchor(P, Q, V, *anchor) + (np.asarray(Ba), np.asarray(Bg))
+    if extrinsic:
+        want += (np.asarray(tic), np.asarray(qic))
+    if len(installed) < len(want):
+        return math.inf
     gaps = [np.max(np.abs(np.asarray(a, np.float64) - b)) if np.shape(a) == np.shape(b) else math.inf
             for a, b in zip(installed, want)]
     return float(max(gaps)) if all(np.isfinite(gaps)) else math.inf
@@ -572,16 +602,21 @@ def evaluate(captures, frames, cfg: dict, counts: dict, seed: int, device,
         notes["k1_rows_left_out"] += int((valid & ~inside).sum())
         return valid & inside
 
-    for name, number, rows_of in (
-            ("proj_rows", "k1_rows_rel_gap", k1_rows),
-            ("imu_rows", "k2_rows_rel_gap", lambda a: np.asarray(a[13]) > 0)):
+    # on the extrinsic branch K1's rows come from projection_residual_jacobians
+    # (J_ex among them), masked by the solve's projection factors
+    for names, number, rows_of in (
+            (("proj_rows", "proj_rows_ex"), "k1_rows_rel_gap",
+             lambda c: k1_rows(ex_rows_as_k1(c["args"], c["valid"]) if "valid" in c
+                               else c["args"])),
+            (("imu_rows",), "k2_rows_rel_gap", lambda c: np.asarray(c["args"][13]) > 0)):
         gaps = []
-        for c in captures.kernels.get(name, []):
-            r = _arrays(ref.kernel(name, c["args"]))
-            p = _arrays(low.kernel(name, c["args"]) if control else c["out"])
-            g = row_gaps(r, p)[rows_of(c["args"])]
-            if g.size:
-                gaps.append(float(np.max(g)))
+        for name in names:
+            for c in captures.kernels.get(name, []):
+                r = _arrays(ref.kernel(name, c["args"]))
+                p = _arrays(low.kernel(name, c["args"]) if control else c["out"])
+                g = row_gaps(r, p)[rows_of(c)]
+                if g.size:
+                    gaps.append(float(np.max(g)))
         keep(number, gaps)
     gaps = []
     for c in captures.kernels.get("normal_equations", []):
@@ -605,7 +640,8 @@ def evaluate(captures, frames, cfg: dict, counts: dict, seed: int, device,
         if control:
             st_low, _ = low.solve(c["inputs"])
             prog = ("WindowState",) + tuple(x.double().cpu().numpy() for x in st_low)
-        elif not install_gap(prog, c["installed"], c["anchor"]) <= INSTALL_TOL:
+        elif not install_gap(prog, c["installed"], c["anchor"],
+                             ref.estimate_extrinsic) <= INSTALL_TOL:
             excess.append(math.inf)
             continue
         excess.append(cost_excess(cost(prog), cost(st_ref)))
@@ -646,6 +682,19 @@ def evaluate(captures, frames, cfg: dict, counts: dict, seed: int, device,
             dcov.append(cov_gap(cov_at.double().cpu().numpy(), p[2]))
         keep("pg_cost_excess", excess)
         keep("pg_cov_rel_gap", dcov)
+
+    # the tracker's undistortion: each copied packet's normalized points
+    # against the reference's lift of its pixels (the capture drew the
+    # packets from the seed; nothing is drawn here, so the samples above
+    # stay those of a run without this number)
+    gaps = []
+    for c in captures.lifts:
+        if len(c["pts_px"]) == 0:
+            continue
+        xy = ref.lift(c["pts_px"])
+        p = low.lift(c["pts_px"]) if control else np.asarray(c["pts_norm"], np.float64)[:, :2]
+        gaps.append(_finite_max(np.linalg.norm(p - xy, axis=1)) * float(ref.camera["fx"]))
+    keep("trk_lift_px", gaps)
     return out
 
 

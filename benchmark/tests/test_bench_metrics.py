@@ -59,27 +59,56 @@ def _ctx(trace=None, samples=None):
             "trace": trace, "window_frames": 10}
 
 
+def _full_ctx():
+    """A context that holds what every per-layer reader reads: the phases'
+    samples, the traced slice's launches, busy time and kernels, and
+    test_bench_spans.py's hand-built run (spans of three frames, the
+    workers' pushes and jobs, the kept session's host events; its third
+    frame under the profiler), with a `trk.replay` inside frame 0's
+    `trk.dispatch`. A reader caches its join in the context: a fresh one
+    each."""
+    import test_bench_spans as hand
+    from isvins_tpu_torch.utils.perf import Span
+
+    ctx = hand._ctx(excluded={"sys.frame": [(2, 3)]})
+    ctx["spans"].append(Span(14, "trk.replay", 0, hand.MAIN, 12 * hand.MS, 28 * hand.MS, 2))
+    ctx["samples"].update({"trk.dispatch": [0.1, 0.3, 0.2], "est.solve_device": [0.2],
+                           "est.marg_collect": [0.01, 0.03], "pg.kf_device_step": [0.07],
+                           "pg.opt_dispatch": [0.4, 0.5]})
+    ctx.update(launches={}, dims=EUROC, window_frames=10)
+    ctx["trace"].update(
+        launches=300_000, busy_s=0.4, window_s=5.0,
+        kernels={"proj_rows_kernel(float*)": (110, 110 * 0.00219e-3),
+                 "schur_corr_kernel(a)": (100, 100 * 0.006e-3),
+                 "linstep_chol_kernel(b)": (100, 100 * 0.1e-3),
+                 "linstep_dl_kernel(c)": (100, 100 * 0.0173e-3)})
+    return ctx
+
+
 def test_readers_read_what_is_there_and_nothing_else():
-    samples = {"trk.dispatch": [0.1, 0.3, 0.2], "est.solve_device": [0.2],
-               "est.marg_collect": [0.01, 0.03], "pg.kf_device_step": [0.07],
-               "pg.opt_dispatch": [0.4, 0.5]}
+    from isvins_tpu_torch.utils import perf
+
+    perf.enable(False)
+    perf.reset()  # with no spans in the context the span readers read the recorder
     k4_s = 0.1233e-3
-    trace = {"launches": 300_000, "frames": 10, "busy_s": 0.4, "window_s": 5.0,
-             "kernels": {"proj_rows_kernel(float*)": (110, 110 * 0.00219e-3),
-                         "schur_corr_kernel(a)": (100, 100 * 0.006e-3),
-                         "linstep_chol_kernel(b)": (100, 100 * 0.1e-3),
-                         "linstep_dl_kernel(c)": (100, 100 * 0.0173e-3)}}
     want = {"trk_dispatch_ms_p50": 200.0, "est_solve_ms_p50": 200.0,
             "est_marg_wait_ms_p50": 20.0, "pg_kf_step_ms_p50": 70.0,
-            "pg_opt_dispatch_ms_p50": 450.0, "launches_per_frame": 30_000.0,
+            "pg_opt_dispatch_ms_p50": 450.0,
+            "launches_per_frame": 150_000.0,  # the slice's 300,000 launches over its 2 frames
             "device_idle_pct": 92.0,
             "k4_linstep_roofline": 100 * 0.000502e-3 / k4_s,
-            "k1_proj_rows_roofline": 100 * 0.000181e-3 / 0.00219e-3}
+            "k1_proj_rows_roofline": 100 * 0.000181e-3 / 0.00219e-3,
+            # the hand-built run's readings (test_bench_spans.py)
+            "sys_frame_ms_p50": 110.0, "sys_self_ms_p50": (30.0 + 110.0) / 2,
+            "tail_pg_busy_pct": 100 * 60 / 220, "tail_marg_busy_pct": 100 * 72 / 220,
+            "trk_launches_per_frame": 1.0, "est_launches_per_frame": 1.5,
+            "pg_launches_per_keyframe": 2 / 0.4,
+            "trk_graph_replay_pct": 100.0}  # frame 0's one dispatch encloses a replay
     names = [m["name"] for m in SPEC["per_layer"]]
     assert sorted(names) == sorted(want)
     for name in names:
         read = harness.load_reader(name)
-        assert read(_ctx(trace, samples)) == pytest.approx(want[name], rel=5e-3), name
+        assert read(_full_ctx()) == pytest.approx(want[name], rel=5e-3), name
         assert read(_ctx()) is None, name  # nothing to read: left out, never 0
 
 

@@ -16,15 +16,24 @@
   factors' rows (the segment sums), a solve whose answer is never
   installed, K1
   rows altered on a third of the rows, a third of the published tracks
-  moved where the tracker produces them, a marginalization prior altered
+  moved where the tracker produces them, the tracker's lift through a
+  camera model that is off, a marginalization prior altered
   where it is produced; and the pose graph's comparison, given an optimize
   that returns the VIO poses untouched or a covariance that is off, reads
-  `correct` false. (One card: no exchange between chips to leave out.)"""
+  `correct` false. (One card: no exchange between chips to leave out.)
+- a self-calibrating cut (estimate_extrinsic 1: K1's rows come from the
+  extrinsic branch's row function, J_ex among them) is correct with K1
+  read over those rows, and its control is not; J_ex altered on a third of
+  the rows, or an answer whose tic and qic are never installed, reads
+  `correct` false;
+- an equidistant (fisheye) cut renders through its model, initializes,
+  and reads the tracker's lift within its limit."""
 
 import numpy as np
 import pytest
 import torch
 
+from benchmark import faults
 from benchmark.reference import check
 from benchmark.reference.precision import Bf16Storage, Tf32Products, bf16_round, tf32_round
 
@@ -120,6 +129,7 @@ class _Captured:
 
     def __init__(self, optimizes):
         self.tracks, self.kernels, self.solves, self.margs, self.loops = {}, {}, [], [], []
+        self.lifts = []
         self.optimizes = optimizes
 
 
@@ -281,6 +291,20 @@ def _never_installed(monkeypatch):
     return plant
 
 
+def _planted(name: str):
+    """A fault of benchmark/faults.py (it breaks the System's own objects)."""
+    return lambda monkeypatch: faults.FAULTS[name]
+
+
+def _j_ex_off(orig):
+    def rows(*a):
+        r, J_pi, J_pj, J_ex, J_dep = orig(*a)
+        J_ex = J_ex.clone()
+        J_ex[::3] += 1e-2
+        return r, J_pi, J_pj, J_ex, J_dep
+    return rows
+
+
 _WINDOW = "isvins_tpu_torch.solver.window"
 # each fault: how it is planted, the number that has to fail, the run's seed
 FAULTS = {
@@ -309,3 +333,45 @@ def test_a_fault_under_the_timed_path_is_not_correct(monkeypatch, fault):
     res = run_cut(seed=seed, fault=plant(monkeypatch))
     assert not res["correct"]
     assert _fails(res["checks"][number]), res["checks"]
+
+
+def test_the_trackers_lift_off_is_not_correct():
+    """The tracker's camera model with fx 0.1 % off, planted after set-up.
+    The window's first collect returns a frame the pipeline dispatched in
+    set-up, lifted before the fault: the window runs long enough (8 s)
+    for the sampled packets to reach the frames after it."""
+    res = run_cut(seed=2**41 + 3, seconds=8, fault=faults.FAULTS["lift_fx_off"])
+    lift = res["checks"]["trk_lift_px"]
+    assert not res["correct"] and lift["answers"] > 0 and _fails(lift), res["checks"]
+
+
+# ------------------------------------------- cuts with another sensor model
+
+def test_selfcal_cut_is_correct_and_its_control_is_not():
+    res = run_cut(seed=2**40 + 1, control=True, config="cut_vio_selfcal")
+    assert res["correct"], res["checks"]
+    assert res["checks"]["k1_rows_rel_gap"]["answers"] > 0
+    assert res["_control_correct"] is False, res["_control_checks"]
+
+
+EXTRINSIC_FAULTS = {
+    "j_ex_altered_on_a_third": (_wrap(_WINDOW, "projection_residual_jacobians", _j_ex_off),
+                                "k1_rows_rel_gap", 2**40 + 7),
+    "the_extrinsic_never_installed": (_planted("extrinsic_never_installed"), "solve_cost_excess",
+                                      2**40 + 9),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(EXTRINSIC_FAULTS))
+def test_an_extrinsic_fault_is_not_correct(monkeypatch, fault):
+    plant, number, seed = EXTRINSIC_FAULTS[fault]
+    res = run_cut(seed=seed, fault=plant(monkeypatch), config="cut_vio_selfcal")
+    assert not res["correct"]
+    assert _fails(res["checks"][number]), res["checks"]
+
+
+def test_equidistant_cut_reads_the_lift_within_its_limit():
+    res = run_cut(seed=2**43 + 1, config="cut_vio_equidistant")
+    lift = res["checks"]["trk_lift_px"]
+    assert lift["answers"] > 0 and lift["value"] <= lift["limit"], lift
+    assert res["correct"], res["checks"]

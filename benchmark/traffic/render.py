@@ -3,10 +3,15 @@ isvins_tpu_torch/utils/synthetic.py's RoomRenderer, rewritten in PyTorch
 so that it renders on the card during set-up.
 
 The camera moves inside a convex polygon of textured wall planes; every
-pixel ray of the camera (lifted through its pinhole-radtan model) hits the
-nearest wall in front of it, whose texture is sampled bilinearly. Each
-frame gets white sensor noise and is rounded to 8 bits, as a camera
-delivers it.
+pixel ray of the camera, lifted through the configuration's camera model
+(benchmark/traffic/camera.py: pinhole-radtan, MEI, equidistant or
+Scaramuzza), hits the nearest wall along it, whose texture is sampled
+bilinearly. A pixel that the model cannot lift (a direction that is not
+finite, or one of MEI's or the equidistant model's iterative lifts that
+projects back more than SEEN_PX from its pixel) renders 0, as one whose
+ray meets no wall. The pinhole path is the one it always was (the same
+operations, the same frames). Each frame gets white sensor noise and is
+rounded to 8 bits, as a camera delivers it.
 
 What the seed draws, and what it does not:
 - the wall geometry (the polygon's per-wall radius jitter) comes from a
@@ -28,23 +33,11 @@ import math
 import numpy as np
 import torch
 
+from .camera import lift, model_of, space_to_plane
 
-def radtan_lift(cam: dict, uv: torch.Tensor, iters: int = 25) -> torch.Tensor:
-    """Pixel (..., 2) -> normalized ray (..., 3) with z = 1: the fixed-point
-    undistortion of the pinhole-radtan model (k1, k2, p1, p2), 25
-    iterations, as the port's camera model lifts."""
-    k1, k2, p1, p2 = (float(cam[k]) for k in ("k1", "k2", "p1", "p2"))
-    pd = torch.stack([(uv[..., 0] - cam["cx"]) / cam["fx"],
-                      (uv[..., 1] - cam["cy"]) / cam["fy"]], dim=-1)
-    p = pd
-    for _ in range(iters):
-        x, y = p[..., 0], p[..., 1]
-        r2 = x * x + y * y
-        radial = k1 * r2 + k2 * r2 * r2
-        dx = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
-        dy = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
-        p = pd - torch.stack([dx, dy], dim=-1)
-    return torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+# a lifted pixel whose ray projects back farther than this from it is one
+# that the model cannot lift (an iteration that left the model's domain)
+SEEN_PX = 1e-2
 
 
 def gaussian_matrix(n: int, sigma: float, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -114,7 +107,16 @@ class RoomRenderer:
         ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=device) + 0.5,
                                 torch.arange(W, dtype=torch.float64, device=device) + 0.5,
                                 indexing="ij")
-        self.rays = radtan_lift(cam, torch.stack([xs, ys], dim=-1))  # (H, W, 3)
+        uv = torch.stack([xs, ys], dim=-1)
+        self.rays = lift(cam, uv)  # (H, W, 3)
+        self.seen = None  # (H, W) the pixels the model lifts; None: all of them (pinhole)
+        if model_of(cam) != "pinhole":
+            seen = torch.isfinite(self.rays).all(dim=-1)
+            if model_of(cam) in ("mei", "equidistant"):
+                back = space_to_plane(cam, torch.where(seen[..., None], self.rays, 1.0))
+                seen &= (back - uv).norm(dim=-1) <= SEEN_PX
+            self.seen = seen
+            self.rays = torch.where(seen[..., None], self.rays, uv.new_tensor([0.0, 0.0, 1.0]))
 
     def _textures(self, n: int, T: int) -> torch.Tensor:
         """Per wall 110 + s / std(|s|) * 22 with s = 3 coarse + 2 mid + 0.8
@@ -149,6 +151,8 @@ class RoomRenderer:
         t_in = torch.where(inside, t, torch.full_like(t, math.inf))
         m = t_in.argmin(dim=-1, keepdim=True)  # the nearest wall; the first on a tie
         any_in = torch.gather(inside, -1, m)[..., 0]
+        if self.seen is not None:
+            any_in = any_in & self.seen
         a, b = torch.gather(a, -1, m)[..., 0], torch.gather(b, -1, m)[..., 0]
         T = self.T
         fx = torch.clamp((a / self.half_u + 1) * 0.5 * (T - 1), 0, T - 1 - 1e-6)
