@@ -47,12 +47,28 @@ builder module's `pnp_ransac_gn` and `optimize_pose_graph`, the tracker's
 `build_normal_equations` and `linstep`, called from Python at every LM
 evaluation. A steady solve replayed as a CUDA graph makes no such call in
 the window: K1's, K2's, the normal equations' and K4's numbers then have
-no answer and `correct` reads false."""
+no answer and `correct` reads false.
+
+While installed, `_proj_ops` holds K1's wrapper at `proj_rows` and reads
+every other name through to ops.proj, so a function added there is
+called through the alias as it is. Two rules a new kernel keeps:
+- benchmark/trace.py counts K1-K4 on the device by substring of the
+  kernel's symbol (COUNTED: `proj_rows_kernel`, `imu_rows_kernel`,
+  `schur_corr_kernel`, `linstep_chol_kernel`). A new kernel whose symbol
+  contains one of these (K1's kernel templated on an extrinsic flag, say)
+  is counted as that kernel: no profiler session then matches
+  ops.launch_counts() (the last is kept, with `consistent` False), and the
+  kernel's roofline takes in the new kernel's time. A new kernel takes a
+  symbol of its own.
+- The extrinsic branch's rows are copied at the solver module's name
+  `projection_residual_jacobians`, called with its 9 positional arguments
+  (pts_i, pts_j, Pi, Qi, Pj, Qj, tic, qic, inv_dep_i) and returning its 5
+  outputs (r, J_pi, J_pj, J_ex, J_dep) in that order and in its shapes. A
+  kernel of those rows is bound to that name, or the capture moves first."""
 
 from __future__ import annotations
 
 import threading
-import types
 
 import numpy as np
 
@@ -157,10 +173,11 @@ class Captures:
         # the solver calls K1 as ops.proj.proj_rows through its module alias
         # `_proj_ops`, and K2 and K4 by the names it imported; the wrappers
         # go where the solver looks, so each kernel module keeps its own
-        # function (which counts its launches on itself)
+        # function (which counts its launches on itself). Every other name
+        # of the alias reads through to ops.proj.
         proj_alias = win_mod._proj_ops
-        win_mod._proj_ops = types.SimpleNamespace(
-            proj_rows=self._kernel_copy("proj_rows", proj_mod.proj_rows))
+        win_mod._proj_ops = _Forward(proj_mod, proj_rows=self._kernel_copy("proj_rows",
+                                                                           proj_mod.proj_rows))
         self._undo.append(lambda: setattr(win_mod, "_proj_ops", proj_alias))
         for name, key in (("imu_rows", "imu_rows"), ("linstep", "linstep"),
                           ("build_normal_equations", "normal_equations"),
@@ -263,6 +280,19 @@ class Captures:
             pend = o.pop("pending")
             outs = getattr(pend, "_outputs", None)
             o["out"] = None if outs is None else tuple(np.array(x.numpy()) for x in outs)
+
+
+class _Forward:
+    """A module as a caller sees it through an alias while some of its
+    functions are wrapped: the wrapped names as given, every other name
+    read from the module at each access."""
+
+    def __init__(self, module, **wrapped):
+        self.__dict__.update(wrapped)
+        self._module = module
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
 
 
 def _tree(tree, leaf):

@@ -6,7 +6,11 @@ kernel_work and the peaks are copied from chip_smoke.py (kernel_work,
 PEAK_*), where the kernel table of PERF.md section 6 was measured: every
 input read once and every output written once, and the operations the
 algorithm needs at the given shapes. K1's per-row operation count (~600)
-is an estimate read off its source; bytes bound K1 anyway."""
+is an estimate read off its source; bytes bound K1 anyway.
+
+A kernel that kernel_work does not know keeps its work in its reader's
+own file, as a function of window_shapes' shapes returning (bytes,
+operations), and hands that function to roofline_pct in place of a name."""
 
 from __future__ import annotations
 
@@ -49,10 +53,11 @@ def kernel_work(name: str, shapes: dict):
     raise KeyError(name)
 
 
-def kernel_bound_s(name: str, shapes: dict) -> float:
+def kernel_bound_s(work, shapes: dict) -> float:
     """The least time (s) the card could take for one call: the larger of
-    bytes over peak bandwidth and operations over peak f32 rate."""
-    nbytes, nops = kernel_work(name, shapes)
+    bytes over peak bandwidth and operations over peak f32 rate. `work` is
+    a name kernel_work knows, or a function shapes -> (bytes, operations)."""
+    nbytes, nops = work(shapes) if callable(work) else kernel_work(work, shapes)
     return max(nbytes / PEAK_BYTES, nops / PEAK_FLOPS)
 
 
@@ -63,11 +68,11 @@ def window_shapes(dims: dict) -> dict:
     return {"N": int(dims["N"]), "F": int(dims["F"]), "D": 15 * B + 6, "Dr": 6 * B + 6}
 
 
-def roofline_pct(ctx, work: str, kernels: tuple, per_call: str):
+def roofline_pct(ctx, work, kernels: tuple, per_call: str):
     """100 x bound / (device time per call): the device time of every
     kernel whose name contains one of `kernels`, over the number of calls,
     counted as the kernels named `per_call`; None without a trace or a
-    call."""
+    call. `work` is as kernel_bound_s takes it."""
     tr = ctx.get("trace")
     if not tr:
         return None

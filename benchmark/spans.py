@@ -37,7 +37,11 @@ from the live trace.Slice whose summary that is, and `window_spans` the
 spans from the port's recorder, which the harness turns on for the window
 only. A harness that puts them into ctx (ctx["spans"], ctx["span_threads"],
 ctx["trace"]["host_events"], ctx["trace"]["device_intervals"]) is read
-first. Every reader returns None where there is nothing to read."""
+first. Every reader returns None where there is nothing to read.
+
+A reader of the launches under a span of its own (a new kernel's, say)
+calls launches_under with the span's name or prefix: the join and the
+thread map are launch_layers'."""
 
 from __future__ import annotations
 
@@ -224,19 +228,27 @@ def excluded_roots(spans, ctx) -> set:
     return {s.id for i, s in enumerate(roots) if any(a <= i < b for a, b in ranges)}
 
 
+def launch_spans(host_events, spans, offset_ns: int, threads: dict):
+    """(native thread id or None, innermost span or None) of each launch
+    call: the span open on the call's own thread as it started (None on a
+    thread no span was recorded on)."""
+    tl, tmap = Timeline(spans), thread_map(spans, threads)
+    for a, _, name, th in host_events:
+        if not name.startswith(LAUNCH_CALLS):
+            continue
+        native = tmap.get(th)
+        yield native, tl.innermost(native, a - offset_ns) if native is not None else None
+
+
 def launch_layers(host_events, spans, offset_ns: int, threads: dict) -> dict:
     """Each launch call put down to a layer by the innermost span open on
     its own thread as it started: `trk` (a trk.* span), `est` (est.* on the
     frame thread), `worker` (any span on another thread; `pg` counts its
     pg.* part again), `unattributed` (no span, a sys.* span's self time, or
     a thread no span was recorded on). The first four sum to the launches."""
-    tl, ft, tmap = Timeline(spans), frame_thread(spans), thread_map(spans, threads)
+    ft = frame_thread(spans)
     n = dict.fromkeys(LAYERS + ("pg",), 0)
-    for a, _, name, th in host_events:
-        if not name.startswith(LAUNCH_CALLS):
-            continue
-        native = tmap.get(th)
-        s = tl.innermost(native, a - offset_ns) if native is not None else None
+    for native, s in launch_spans(host_events, spans, offset_ns, threads):
         if s is None:
             n["unattributed"] += 1
         elif s.name.startswith("trk."):
@@ -288,11 +300,17 @@ def _joined(ctx):
     return ctx["_spans_joined"]
 
 
+def _joined_slice(ctx):
+    """_joined(ctx), or None where it is None or the slice kept no frame."""
+    j = _joined(ctx)
+    return None if j is None or not ctx["trace"].get("frames") else j
+
+
 def launches(ctx):
     """launch_layers over the kept slice, with the slice's frames, the
     clock offset and its spread (None where nothing is joined)."""
-    j = _joined(ctx)
-    if j is None or not ctx["trace"].get("frames"):
+    j = _joined_slice(ctx)
+    if j is None:
         return None
     spans, host, _, (off, spread) = j
     n = launch_layers(host, spans, off, span_threads(ctx))
@@ -303,6 +321,20 @@ def launches(ctx):
 def launches_per_frame(ctx, layer: str):
     n = launches(ctx)
     return None if n is None else n[layer] / n["frames"]
+
+
+def launches_under(ctx, prefix: str):
+    """The kept slice's launch calls on the frame thread whose innermost
+    span (launch_spans) has a name that starts with `prefix`, over the
+    slice's frames. None where nothing is joined."""
+    j = _joined_slice(ctx)
+    if j is None:
+        return None
+    spans, host, _, (off, _) = j
+    ft = frame_thread(spans)
+    n = sum(1 for native, s in launch_spans(host, spans, off, span_threads(ctx))
+            if native == ft and s is not None and s.name.startswith(prefix))
+    return n / ctx["trace"]["frames"]
 
 
 def _kept_interval(spans, ctx):

@@ -2,9 +2,15 @@
 frames, the union of device intervals and the idle gaps of a trace, each
 reader on a context it can and cannot read, and kernel_work against the
 bounds of PERF.md section 6 (K1 0.000181 ms, K4 0.000502 ms at the EuRoC
-window B=18, F=1000, N=3072)."""
+window B=18, F=1000, N=3072).
+
+The readers' checks hold for any per-layer metric BENCHMARK.json gains:
+every metric reads None where there is nothing to read, and one outside
+WANT is read in another test file, by a call load_reader("<name>") there."""
 
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -85,31 +91,62 @@ def _full_ctx():
     return ctx
 
 
-def test_readers_read_what_is_there_and_nothing_else():
+# each reader's reading on _full_ctx(); a per-layer metric outside this table
+# brings a test of its own, in a test file of its own
+WANT = {"trk_dispatch_ms_p50": 200.0, "est_solve_ms_p50": 200.0,
+        "est_marg_wait_ms_p50": 20.0, "pg_kf_step_ms_p50": 70.0,
+        "pg_opt_dispatch_ms_p50": 450.0,
+        "launches_per_frame": 150_000.0,  # the slice's 300,000 launches over its 2 frames
+        "device_idle_pct": 92.0,
+        "k4_linstep_roofline": 100 * 0.000502e-3 / 0.1233e-3,  # K4's three kernels a call
+        "k1_proj_rows_roofline": 100 * 0.000181e-3 / 0.00219e-3,
+        # the hand-built run's readings (test_bench_spans.py)
+        "sys_frame_ms_p50": 110.0, "sys_self_ms_p50": (30.0 + 110.0) / 2,
+        "tail_pg_busy_pct": 100 * 60 / 220, "tail_marg_busy_pct": 100 * 72 / 220,
+        "trk_launches_per_frame": 1.0, "est_launches_per_frame": 1.5,
+        "pg_launches_per_keyframe": 2 / 0.4,
+        "trk_graph_replay_pct": 100.0}  # frame 0's one dispatch encloses a replay
+NAMES = [m["name"] for m in SPEC["per_layer"]]
+
+
+def reads_none_on_nothing(name: str) -> bool:
+    """Whether the metric's reader reads None on a context with nothing
+    to read (no trace, no samples, no spans in the port's recorder)."""
     from isvins_tpu_torch.utils import perf
 
     perf.enable(False)
     perf.reset()  # with no spans in the context the span readers read the recorder
-    k4_s = 0.1233e-3
-    want = {"trk_dispatch_ms_p50": 200.0, "est_solve_ms_p50": 200.0,
-            "est_marg_wait_ms_p50": 20.0, "pg_kf_step_ms_p50": 70.0,
-            "pg_opt_dispatch_ms_p50": 450.0,
-            "launches_per_frame": 150_000.0,  # the slice's 300,000 launches over its 2 frames
-            "device_idle_pct": 92.0,
-            "k4_linstep_roofline": 100 * 0.000502e-3 / k4_s,
-            "k1_proj_rows_roofline": 100 * 0.000181e-3 / 0.00219e-3,
-            # the hand-built run's readings (test_bench_spans.py)
-            "sys_frame_ms_p50": 110.0, "sys_self_ms_p50": (30.0 + 110.0) / 2,
-            "tail_pg_busy_pct": 100 * 60 / 220, "tail_marg_busy_pct": 100 * 72 / 220,
-            "trk_launches_per_frame": 1.0, "est_launches_per_frame": 1.5,
-            "pg_launches_per_keyframe": 2 / 0.4,
-            "trk_graph_replay_pct": 100.0}  # frame 0's one dispatch encloses a replay
-    names = [m["name"] for m in SPEC["per_layer"]]
-    assert sorted(names) == sorted(want)
-    for name in names:
+    return harness.load_reader(name)(_ctx()) is None
+
+
+def other_test_files():
+    here = Path(__file__).resolve()
+    return sorted(f for f in here.parent.glob("test_*.py") if f != here)
+
+
+def readers_without_a_test(names, test_files) -> list:
+    """The names outside WANT that no file of `test_files` reads: none
+    holds a call load_reader("<name>") (or with single quotes)."""
+    texts = [f.read_text() for f in test_files]
+    return [n for n in names if n not in WANT and not any(
+        re.search(rf"load_reader\(\s*([\"']){re.escape(n)}\1\s*\)", t) for t in texts)]
+
+
+def test_readers_read_what_is_there_and_nothing_else():
+    assert set(WANT) <= set(NAMES), sorted(set(WANT) - set(NAMES))
+    for name in WANT:
         read = harness.load_reader(name)
-        assert read(_full_ctx()) == pytest.approx(want[name], rel=5e-3), name
-        assert read(_ctx()) is None, name  # nothing to read: left out, never 0
+        assert read(_full_ctx()) == pytest.approx(WANT[name], rel=5e-3), name
+        assert reads_none_on_nothing(name), name  # nothing to read: left out, never 0
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_reader_reads_none_where_there_is_nothing(name):
+    assert reads_none_on_nothing(name)
+
+
+def test_every_reader_outside_the_table_has_a_test_of_its_own():
+    assert readers_without_a_test(NAMES, other_test_files()) == []
 
 
 def test_every_metric_has_a_reader_or_the_harness_takes_it():

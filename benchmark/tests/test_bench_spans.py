@@ -2,9 +2,14 @@
 thread) host events: the anchors' clock offset, launches put down to the
 innermost span on their own thread, self time, the tails' busy overlap,
 the idle gaps' labels, each new reader on a run it can read and on one it
-cannot (None, never 0), and the kept session found from its summary in a
-real CPU profiler session."""
+cannot (None, never 0; so too every reader of BENCHMARK.json that uses
+benchmark/spans.py, and where it joins the clocks, on a run without
+anchors), and the kept session found from its summary in a real CPU
+profiler session."""
 
+import importlib
+import inspect
+import json
 import threading
 
 import pytest
@@ -14,6 +19,8 @@ from benchmark import harness, spans
 from benchmark.trace import Slice
 from isvins_tpu_torch.utils import perf
 from isvins_tpu_torch.utils.perf import Span
+
+from conftest import ROOT
 
 NEW = ("sys_frame_ms_p50", "sys_self_ms_p50", "tail_pg_busy_pct", "tail_marg_busy_pct",
        "trk_launches_per_frame", "est_launches_per_frame", "pg_launches_per_keyframe")
@@ -142,8 +149,25 @@ def test_new_readers_on_a_hand_built_run():
     assert harness.load_reader("pg_launches_per_keyframe")(ctx) == pytest.approx(2 / 0.4)
 
 
-@pytest.mark.parametrize("name", NEW)
-def test_new_readers_read_none_where_there_is_nothing(name):
+def _reads_the_join(name) -> bool:
+    """Whether the metric's reader joins spans with the kept session's
+    events (spans._joined) on the hand-built run."""
+    calls = []
+    joined = spans._joined
+
+    def count(ctx):
+        calls.append(ctx)
+        return joined(ctx)
+
+    spans._joined = count
+    try:
+        harness.load_reader(name)(_ctx())
+    finally:
+        spans._joined = joined
+    return bool(calls)
+
+
+def _reads_none_where_there_is_nothing(name):
     perf.enable(False)
     perf.reset()
     read = harness.load_reader(name)
@@ -152,8 +176,40 @@ def test_new_readers_read_none_where_there_is_nothing(name):
                 "host_events": [], "device_intervals": []}, "excluded": {}}) is None
     bare = _ctx()
     bare["trace"]["host_events"] = [e for e in _host() if not e[2].startswith(perf.ANCHOR)]
-    if "launches" in name:  # no anchor: the clocks cannot be joined
+    if "launches" in name or _reads_the_join(name):  # no anchor: the clocks cannot be joined
         assert read(bare) is None
+
+
+def _reads_spans(module, seen) -> bool:
+    """Whether a reader's module uses benchmark/spans.py: it holds that
+    module or one of its functions, or a module or function of another
+    benchmark.metrics module that does."""
+    if module.__name__ in seen:
+        return False
+    seen.add(module.__name__)
+    for v in vars(module).values():
+        src = v if inspect.ismodule(v) else inspect.getmodule(v) if callable(v) else None
+        if src is spans or (src is not None and src.__name__.startswith("benchmark.metrics.")
+                            and _reads_spans(src, seen)):
+            return True
+    return False
+
+
+# every per-layer metric whose reader uses benchmark/spans.py, those added
+# later included
+SPAN_READERS = tuple(
+    m["name"] for m in json.loads((ROOT / "BENCHMARK.json").read_text())["per_layer"]
+    if _reads_spans(importlib.import_module(f"benchmark.metrics.{m['name']}"), set()))
+
+
+@pytest.mark.parametrize("name", NEW)
+def test_new_readers_read_none_where_there_is_nothing(name):
+    _reads_none_where_there_is_nothing(name)
+
+
+@pytest.mark.parametrize("name", SPAN_READERS)
+def test_span_readers_read_none_where_there_is_nothing(name):
+    _reads_none_where_there_is_nothing(name)
 
 
 def test_the_kept_session_is_read_from_a_live_slice():
